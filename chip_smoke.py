@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out FILE] [--seed N]
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one
-process per source, all at once), then runs three phases and fails on the
+Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+one process per source, all at once), then runs five phases and fails on the
 first disagreement:
 
 * kernels — each kernel against its plain PyTorch version, run on CPU copies
@@ -18,17 +18,33 @@ first disagreement:
   ``map_batch`` at B = 256, resizes, PE masks and counter drains
   interleaved;
 * runtime — the CEDR twin (``CedrSimulator`` on the paper's 3x A53 + FFT
-  SoC, the oversubscribed high-latency workload at 600 frames/s) with
+  SoC, the oversubscribed high-latency workload at 600 frames/s, cut to
+  five instances each of PD and TX to keep the run's time) with
   ``make_dispatch_fabric("cuda")`` and ``("fused")`` on the card, against
-  the same run on the CPU plain path: identical ``SimResult``.
+  the same run on the CPU plain path: identical ``SimResult``;
+* queue — the priority queue (``kernels.oddeven_sort``) and the EFT
+  selector (``kernels.eft_select``) against their plain versions, bitwise:
+  sorts of B = 256 rows at D in {5, 1330, 2048, 65536} with f32, bf16 and
+  i32 keys (duplicates, NaN, -inf, +-0.0, a band around 2**24), drains at
+  the same D with P in {4, 8, 40, 1024} (all-inf rows, subnormal
+  registers; B shrinks as D * P grows); then the two-phase event, sort ->
+  gather -> select, through the public entry points at B = 256, P = 4,
+  equal to ``heft_fused`` on the card;
+* serving — ``simulate_serving`` over ``default_fleet()`` at 1600 requests/s
+  for 3 s (the ``bench_serve_scheduler`` cell), with a replica-loss and
+  straggler timeline, and over ``mesh_fleet()`` with a split / grow / merge
+  timeline, each with ``make_policy_fabric("cuda")`` and ``("fused")`` on
+  the card, against the same run with the float32 plain path (``torch`` on
+  the CPU): identical ``ServeResult``.
 
-The fabric and runtime phases are the main path: the kernels' launch
-counters are zeroed just before each and read just after, and each kernel
-must have launched in each.  Then each kernel is timed with CUDA events at
-the fabric-batched shape (B = 256, D = 2048, P = 4) beside its plain
-version and its memory bound.  The last two lines are the ``kernels`` JSON
-record and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-card, without the port's sources next to it, or on any failure.
+The fabric, runtime, queue-event and serving runs are the main path: the
+kernels' launch counters are zeroed just before each and read just after,
+and each kernel must have launched on its path.  Then each kernel is timed
+with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
+beside its plain version, its bound and, for the sort, ``torch.sort``.  The
+last two lines are the ``kernels`` JSON record and ``{"ok": true,
+"device": {...}}``.  Exits non-zero without a card, without the port's
+sources next to it, or on any failure.
 """
 
 from __future__ import annotations
@@ -53,13 +69,16 @@ def log(msg: str) -> None:
 
 
 def bits_equal(a, b) -> bool:
-    """Bitwise equality of two tensors (float lanes compared as int32)."""
+    """Bitwise equality of two tensors (float lanes compared as integers of
+    their width)."""
     import torch
     a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype in (torch.bfloat16, torch.float16):
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -229,14 +248,18 @@ def phase_fabric(torch, seed: int) -> None:
 # phase: the CEDR runtime twin (main path, part 2)
 # ---------------------------------------------------------------------------
 
+TWIN_APPS = 10    # the first 10 of the workload's 20 frames (5 PD, 5 TX)
+
+
 def run_twin(backend: str, device: str):
-    from repro_torch.runtime import (CedrSimulator, high_latency_arrivals,
-                                     make_dispatch_fabric,
+    from repro_torch.runtime import (CedrSimulator, high_latency_workload,
+                                     make_arrivals, make_dispatch_fabric,
                                      paper_soc_pe_types)
     sim = CedrSimulator(paper_soc_pe_types(),
                         dispatch=make_dispatch_fabric(backend, device=device),
                         seed=7)
-    return sim.run(high_latency_arrivals(600, seed=1))
+    return sim.run(make_arrivals(high_latency_workload()[:TWIN_APPS], 600,
+                                 seed=1))
 
 
 def same_sim_result(a, b) -> bool:
@@ -273,6 +296,192 @@ def phase_runtime(torch, K) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the priority queue and the EFT selector as standalone kernels
+# ---------------------------------------------------------------------------
+
+SORT_D = (5, 1330, 2048, 65536)
+SELECT_P = (4, 8, 40, 1024)
+MAX_SELECT_LANES = 1 << 24    # B * D * P per drain check (64 MB of exec)
+
+
+def sort_keys(rng, B, D, dtype):
+    """Seeded keys with duplicates and the special values of each type."""
+    import torch
+    if dtype == "i32":
+        k = rng.integers(-50, 50, (B, D)).astype(np.int32)
+        k[rng.random((B, D)) < 0.3] += 2**24           # exact above 2**24
+        k[rng.random((B, D)) < 0.01] = np.iinfo(np.int32).min
+        return torch.from_numpy(k)
+    k = rng.integers(-8, max(8, D // 8), (B, D)).astype(np.float32)
+    r = rng.random((B, D))
+    k[r < 0.04] = np.nan
+    k[(r >= 0.04) & (r < 0.08)] = -np.inf
+    k[(r >= 0.08) & (r < 0.10)] = np.inf
+    k[(r >= 0.10) & (r < 0.14)] = -0.0
+    k[(r >= 0.14) & (r < 0.18)] = 0.0
+    t = torch.from_numpy(k)
+    return t.bfloat16() if dtype == "bf16" else t
+
+
+def phase_queue_checks(torch, seed: int) -> dict:
+    from repro_torch.kernels import eft_select, oddeven_sort, ops
+    from repro_torch.kernels.ref import eft_select_ref
+
+    rng = np.random.default_rng(seed)
+    errs = {"oddeven_sort": 0.0, "eft_select": 0.0}
+    for D in SORT_D:
+        for dtype in ("f32", "bf16", "i32"):
+            keys = sort_keys(rng, 256, D, dtype)
+            payload = torch.from_numpy(
+                rng.integers(-2**31, 2**31 - 1, (256, D)).astype(np.int32))
+            want = ops._sort.sort_plain(keys, payload)
+            got = oddeven_sort(keys.cuda(), payload.cuda())
+            torch.cuda.synchronize()
+            what = f"oddeven_sort B=256 D={D} {dtype}"
+            for g, w, name in zip(got, want, ("keys", "payload")):
+                require(bits_equal(g, w), f"{what}: {name} differ")
+            errs["oddeven_sort"] = max(errs["oddeven_sort"],
+                                       max_abs_err(got[0], want[0]))
+            log(f"[queue] {what}: bitwise equal")
+    for D in SORT_D:
+        for P in SELECT_P:
+            B = max(1, min(256, MAX_SELECT_LANES // (D * P)))
+            # subnormal registers wherever the plain drain stays quick
+            kinds = (("ints", "subnormal") if D * P <= SORT_D[-1] * 4
+                     else ("ints",))
+            for kind in kinds:
+                _, ex, av = make_event(rng, B, D, P, kind=kind)
+                cpu = [torch.from_numpy(x) for x in (ex, av)]
+                want = eft_select_ref(*cpu)
+                regs = cpu[1].cuda()
+                got = eft_select(cpu[0].cuda(), regs, out_avail=regs)
+                torch.cuda.synchronize()
+                what = f"eft_select B={B} D={D} P={P} {kind}"
+                for g, w, name in zip(got, want, ("assignment", "start",
+                                                  "finish", "new_avail")):
+                    require(bits_equal(g, w), f"{what}: {name} differ")
+                    errs["eft_select"] = max(errs["eft_select"],
+                                             max_abs_err(g, w))
+            log(f"[queue] eft_select B={B} D={D} P={P} {'+'.join(kinds)}: "
+                f"bitwise equal")
+    return errs
+
+
+def two_phase_event(torch, keys, ex, av):
+    """The mapping event through the two standalone kernels' entry points:
+    sort the queue carrying the QIDs, gather the exec rows, drain."""
+    from repro_torch.kernels import eft_select, oddeven_sort
+    B, D, P = ex.shape
+    qids = torch.arange(D, dtype=torch.int32, device=keys.device)
+    _, order = oddeven_sort(keys, qids.expand(B, D))
+    exec_sorted = torch.gather(ex, 1, order.long()[..., None].expand(B, D, P))
+    return (order, *eft_select(exec_sorted, av))
+
+
+def phase_queue_path(torch, K, seed: int) -> dict:
+    """Main path of the two kernels: the two-phase event at the
+    fabric-batched shape, held against heft_fused on the card."""
+    from repro_torch.kernels import heft_fused as hf
+
+    rng = np.random.default_rng(seed + 1)
+    events = [(256, D, 4) for D in (5, 1330, 2048)] + [(4, 65536, 4)]
+    inputs = [[torch.from_numpy(x).cuda()
+               for x in make_event(rng, B, D, P, kind="special")]
+              for B, D, P in events]
+    K.reset_launch_counts()
+    got = [two_phase_event(torch, *x) for x in inputs]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for (B, D, P), x, g in zip(events, inputs, got):
+        want = hf.heft_fused(*x)
+        torch.cuda.synchronize()
+        compare_results(type(want)(*g), want,
+                        f"sort -> gather -> select B={B} D={D} P={P}")
+        log(f"[queue] two-phase event B={B} D={D} P={P}: equal to "
+            f"heft_fused")
+    require(counts["oddeven_sort"] == counts["eft_select"] == len(events),
+            f"two-phase event launches {counts}")
+    log(f"[queue] launches {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase: the serving scheduler over the fabric (main path, part 3)
+# ---------------------------------------------------------------------------
+
+SERVE_RATE_RPS, SERVE_DURATION_S, SERVE_ACTIVE_PARAMS = 1600, 3.0, 7e9
+
+
+def serving_runs(S):
+    """(name, fleet, simulate_serving keywords) of the serving phase."""
+    fleet = S.default_fleet()
+    chaos = [S.FailureEvent(0.5, "straggler", "v4-128", duration_s=1.0,
+                            factor=4.0),
+             S.FailureEvent(1.0, "replica_loss", "v5e-256b")]
+    mesh = S.mesh_fleet()
+    se = S.split_event(0.5, mesh[1], [(8, 16), (8, 16)])
+    grow = S.ResizeEvent(1.0, add=(S.mesh_fleet("deepseek-7b",
+                                                ((4, 16),))[0],))
+    me = S.merge_event(2.0, se.add, (16, 16))
+    return [("default_fleet", fleet, {}),
+            ("loss+straggler", fleet, {"failure_events": chaos}),
+            ("split/grow/merge", mesh, {"fleet_events": [se, grow, me]})]
+
+
+def same_serve_result(a, b) -> bool:
+    for f in dataclasses.fields(a):
+        x, y = np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name))
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
+def phase_serving(torch, K) -> dict:
+    import repro_torch.sched_integration as S
+
+    reqs = S.make_requests(rate_rps=SERVE_RATE_RPS,
+                           duration_s=SERVE_DURATION_S, seed=0)
+    counts = {}
+    for name, fleet, kw in serving_runs(S):
+        t0 = time.perf_counter()
+        ref = S.simulate_serving(fleet, reqs,
+                                 S.make_policy_fabric("torch", device="cpu"),
+                                 active_params=SERVE_ACTIVE_PARAMS, **kw)
+        ref_s = time.perf_counter() - t0
+        for backend in ("cuda", "fused"):
+            pol = S.make_policy_fabric(backend, device="cuda")
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = S.simulate_serving(fleet, reqs, pol,
+                                     active_params=SERVE_ACTIVE_PARAMS, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c = K.launch_counts()
+            counts[f"{name}/{backend}"] = c
+            fab = pol.fabric()
+            require(fab.backend_effective == backend,
+                    f"serving {name}: the {backend} policy ran "
+                    f"{fab.backend_effective}")
+            kernel = "heft_fused" if backend == "cuda" else "fused_decision"
+            require(c[kernel] == fab.events > 0,
+                    f"serving {name}/{backend}: {c[kernel]} {kernel} launches "
+                    f"for {fab.events} mapping events")
+            require(same_serve_result(res, ref),
+                    f"serving {name} on the {backend} backend differs from "
+                    f"the float32 CPU plain run")
+            require(res.served_mask.all() and np.isfinite(res.p99_latency),
+                    f"serving {name}/{backend}: not every request served")
+            log(f"[serving] {name} {backend}: {len(reqs)} requests, "
+                f"{fab.events} mapping events, mean latency "
+                f"{res.mean_latency} s, p99 {res.p99_latency} s, achieved "
+                f"{res.achieved_rps} req/s, requeued {int(res.requeued.sum())}"
+                f", launches {c}, wall {dt:.3f} s (CPU plain {ref_s:.3f} s): "
+                f"ServeResult identical to the CPU plain run")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -290,16 +499,33 @@ def cuda_time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(B: int, D: int, P: int, masked: bool) -> tuple[float, str]:
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time for the work: bytes moved (inputs once, outputs once) over
-    the memory rate vs f32 operations (an add and a compare per lane per
-    step) over the f32 rate."""
-    nbytes = 4 * B * D + 4 * B * D * P + 4 * B * P + (P if masked else 0)
-    nbytes += 16 * B * D + 4 * B * P
-    ops = 2 * B * D * P
+    the memory rate vs operations over the f32 rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def event_bound(B: int, D: int, P: int, masked: bool) -> tuple[float, str]:
+    """A mapping event: keys, exec, avail (and the mask) in; order,
+    assignment, start, finish and avail out; an add and a compare per lane
+    per step."""
+    nbytes = 4 * B * D + 4 * B * D * P + 4 * B * P + (P if masked else 0)
+    nbytes += 16 * B * D + 4 * B * P
+    return bound(nbytes, 2 * B * D * P)
+
+
+def sort_bound(B: int, D: int, key_bytes: int) -> tuple[float, str]:
+    """A sort: keys and payload in and out; D log2 D compares a row."""
+    return bound(2 * B * D * (key_bytes + 4), B * D * max(np.log2(D), 1.0))
+
+
+def select_bound(B: int, D: int, P: int) -> tuple[float, str]:
+    """A drain: exec and avail in; assignment, start, finish and avail out;
+    an add and a compare per lane per step."""
+    return bound(4 * B * D * P + 4 * B * P + 12 * B * D + 4 * B * P,
+                 2 * B * D * P)
 
 
 def phase_timing(torch, seed: int) -> dict:
@@ -324,12 +550,55 @@ def phase_timing(torch, seed: int) -> dict:
         one = ((lambda: hf.heft_fused(k1, e1, a1)) if name == "heft_fused"
                else (lambda: fd.fused_decision(k1, e1, a1, mask)))
         single = cuda_time_ms(torch, one, iters=50)
-        b_ms, b_by = bound(B, D, P, name == "fused_decision")
+        b_ms, b_by = event_bound(B, D, P, name == "fused_decision")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "single_event_D256_ms": single}
+                     "bound_by": b_by, "library_ms": None,
+                     "single_event_D256_ms": single}
         log(f"[timing] {name} B={B} D={D} P={P}: kernel {ms:.6f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}); one event "
             f"D=256 P=4: {single:.6f} ms")
+    out.update(time_queue_kernels(torch, keys, ex, av))
+    return out
+
+
+def time_queue_kernels(torch, keys, ex, av) -> dict:
+    """The two standalone kernels on the timed shape's event: the sort of
+    its keys carrying the QIDs, and the drain of its exec rows in that
+    order (both their own inputs, as the two-phase event hands them)."""
+    from repro_torch.kernels import eft_select, oddeven_sort, ops
+    from repro_torch.kernels.ref import eft_select_ref
+
+    B, D, P = TIMED_SHAPE
+    qids = torch.arange(D, dtype=torch.int32,
+                        device="cuda").expand(B, D).contiguous()
+    _, order = oddeven_sort(keys, qids)
+    exec_sorted = torch.gather(
+        ex, 1, order.long()[..., None].expand(B, D, P)).contiguous()
+
+    def library_sort():
+        # the one PyTorch call for the same function (keys without NaN
+        # here), plus the payload gather
+        k, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+        return k, qids.gather(1, idx)
+
+    out = {}
+    for name, kern, plain, library, (b_ms, b_by) in (
+            ("oddeven_sort", lambda: oddeven_sort(keys, qids),
+             lambda: ops._sort.sort_plain(keys, qids), library_sort,
+             sort_bound(B, D, 4)),
+            ("eft_select", lambda: eft_select(exec_sorted, av),
+             lambda: eft_select_ref(exec_sorted, av), None,
+             select_bound(B, D, P))):
+        ms = cuda_time_ms(torch, kern, iters=20)
+        plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=1)
+        lib_ms = (cuda_time_ms(torch, library, iters=20) if library
+                  else None)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms}
+        lib = (f"torch.sort + gather {lib_ms:.6f} ms" if lib_ms is not None
+               else "no PyTorch call computes it")
+        log(f"[timing] {name} B={B} D={D} P={P}: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
     return out
 
 
@@ -347,7 +616,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.kernels as K
-    from repro_torch.kernels import fused_decision as fd, heft_fused as hf
+    from repro_torch.kernels import ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -360,11 +629,12 @@ def main() -> int:
     t0 = time.perf_counter()
     K.build_kernels()
     walls["build"] = time.perf_counter() - t0
-    for kern in (hf.KERNEL, fd.KERNEL):
+    for kern in ops.KERNELS:
         for line in kern.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {kern.name}: {line.strip()}")
-    log(f"[build] nvcc, both kernels in parallel: {walls['build']:.3f} s")
+    log(f"[build] nvcc, {len(ops.KERNELS)} kernels in parallel: "
+        f"{walls['build']:.3f} s")
 
     t0 = time.perf_counter()
     errs = phase_kernels(torch, args.seed)
@@ -383,15 +653,34 @@ def main() -> int:
     walls["runtime"] = time.perf_counter() - t0
     log(f"[runtime] wall {walls['runtime']:.3f} s")
 
+    t0 = time.perf_counter()
+    queue_errs = phase_queue_checks(torch, args.seed)
+    errs.update(queue_errs)
+    queue_counts = phase_queue_path(torch, K, args.seed)
+    walls["queue"] = time.perf_counter() - t0
+    log(f"[queue] wall {walls['queue']:.3f} s")
+
+    t0 = time.perf_counter()
+    serving_counts = phase_serving(torch, K)
+    walls["serving"] = time.perf_counter() - t0
+    log(f"[serving] wall {walls['serving']:.3f} s")
+
     launches = {}
-    for name in fabric_counts:
-        per_phase = [fabric_counts[name]] + [c[name] for c in
-                                             runtime_counts.values()]
+    for name in ("heft_fused", "fused_decision"):
+        per_phase = ([fabric_counts[name]]
+                     + [c[name] for c in runtime_counts.values()]
+                     + [c[name] for c in serving_counts.values()])
         require(fabric_counts[name] > 0,
                 f"{name} never launched in the fabric phase")
         require(sum(c[name] for c in runtime_counts.values()) > 0,
                 f"{name} never launched in the runtime phase")
+        require(sum(c[name] for c in serving_counts.values()) > 0,
+                f"{name} never launched in the serving phase")
         launches[name] = sum(per_phase)
+    for name in ("oddeven_sort", "eft_select"):
+        require(queue_counts[name] > 0,
+                f"{name} never launched on the two-phase event path")
+        launches[name] = queue_counts[name]
 
     t0 = time.perf_counter()
     timing = phase_timing(torch, args.seed)
@@ -401,25 +690,33 @@ def main() -> int:
     sources = {"heft_fused": ("src/repro_torch/csrc/heft_fused.cu",
                               "src/repro/kernels/heft_fused.py:28"),
                "fused_decision": ("src/repro_torch/csrc/fused_decision.cu",
-                                  "src/repro/kernels/fused_decision.py:118")}
+                                  "src/repro/kernels/fused_decision.py:118"),
+               "oddeven_sort": ("src/repro_torch/csrc/oddeven_sort.cu",
+                                "src/repro/kernels/oddeven_sort.py:38"),
+               "eft_select": ("src/repro_torch/csrc/eft_select.cu",
+                              "src/repro/kernels/eft_select.py:29")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": dict(zip("BDP", TIMED_SHAPE)),
-            "single_event_D256_ms": t["single_event_D256_ms"],
-        })
+        }
+        if "single_event_D256_ms" in t:
+            entry["single_event_D256_ms"] = t["single_event_D256_ms"]
+        kernels.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "walls_s": walls, "kernels": kernels,
             "launches_fabric": fabric_counts,
-            "launches_runtime": runtime_counts}, indent=1))
+            "launches_runtime": runtime_counts,
+            "launches_queue": queue_counts,
+            "launches_serving": serving_counts}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

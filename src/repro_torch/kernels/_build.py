@@ -4,7 +4,8 @@ ctypes.
 Each kernel is one ``csrc/*.cu`` translation unit with a plain C interface,
 compiled for Hopper (``sm_90a``) into a shared library under the checkout's
 ``build/kernels/`` directory (git-ignored).  The library name carries a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
+of the flags, the kernel's own source and the headers it includes, so an
+edited source rebuilds only the kernels that include it and an unchanged one
 loads as is.  :func:`build` starts one nvcc per missing library, all at
 once, and waits for them together.  A missing nvcc or a failed build raises:
 there is no fallback.
@@ -16,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import re
 import subprocess
 from pathlib import Path
 
@@ -42,7 +44,7 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sorted(CSRC.glob("*.cu*")):
+        for src in sources_of(self.source):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
@@ -60,6 +62,23 @@ class Kernel:
                 fn.restype = restype
             self._lib = lib
         return self._lib
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(source: Path) -> list[Path]:
+    """``source`` and every header it includes with ``#include "..."``,
+    transitively, sorted by path (what its library's hash covers)."""
+    seen, todo = set(), [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return sorted(seen)
 
 
 def nvcc() -> str:

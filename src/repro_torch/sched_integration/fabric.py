@@ -855,12 +855,21 @@ def make_policy_fabric(backend: str | None = None, *, device=None,
     the fabric is created lazily so one factory works for any fleet size,
     and a fleet-size change mid-stream resizes the live fabric instead of
     rebuilding it.  ``backend=None`` honours ``REPRO_TORCH_FABRIC_BACKEND``
-    and defaults to the oracle-exact numpy host path otherwise.  The fabric
-    is reachable afterwards via the policy's ``fabric()`` attribute (None
-    until the first mapping event).
+    and is ``"auto"`` otherwise, as :func:`repro_torch.runtime.
+    make_dispatch_fabric`: the ``cuda`` kernel on the card (``device=None``
+    means the card, and the first mapping event raises without one), the
+    float64 numpy host path with ``device="cpu"``.  The fabric is reachable
+    afterwards via the policy's ``fabric()`` attribute (None until the first
+    mapping event).
+
+    Fidelity caveat: the numpy backend is bit-identical to
+    ``policy_heft_rt`` for any float64 inputs; the device backends compute
+    in float32, so on the card the policy matches the float32 plain path
+    (the ``torch`` backend with ``device="cpu"``) bitwise, and the float64
+    oracle only where the service times and registers are exact in f32.
     """
     if backend is None:
-        backend = _env_backend() or "numpy"
+        backend = _env_backend() or "auto"
     fab: MappingFabric | None = None
 
     def policy(exec_times, avail):

@@ -18,6 +18,9 @@ from _hypothesis_compat import given, settings, st
 
 import repro.core as ref
 import repro_torch.core as port
+from repro.core.heft_energy import (energy_pareto as ref_energy_pareto,
+                                    heft_rt_energy_numpy as ref_energy)
+from repro_torch.core.heft_energy import energy_pareto, heft_rt_energy_numpy
 
 
 def _event(rng, n, p, *, dup_range=4, inf_frac=0.2, special=False):
@@ -155,3 +158,96 @@ def test_copied_cycle_and_resource_models_equal_reference():
         assert port.total_registers(d_port) == ref.total_registers(d_ref)
         assert port.critical_path_ns(d_port) == ref.critical_path_ns(d_ref)
         assert port.utilization(d_port) == ref.utilization(d_ref)
+
+
+# ---------------------------------------------------------------------------
+# classic static HEFT and energy-aware HEFT_RT (numpy copies)
+# ---------------------------------------------------------------------------
+
+def _diamond_dag(mod):
+    comp = np.array([[2.0, 1.0], [3.0, 6.0], [4.0, 2.0], [1.0, 1.0]])
+    return mod.DAG(num_tasks=4, comp=comp,
+                   succ={0: [(1, 1.0), (2, 1.0)], 1: [(3, 1.0)],
+                         2: [(3, 1.0)]})
+
+
+def _random_dag(mod, seed, T=14, P=3):
+    rng = np.random.default_rng(seed)
+    comp = rng.integers(1, 12, (T, P)).astype(np.float64)
+    comp[rng.random((T, P)) < 0.15] = np.inf
+    comp[:, 0] = rng.integers(1, 12, T)              # PE 0 runs every task
+    succ = {t: [(c, float(rng.integers(0, 5))) for c in range(t + 1, T)
+                if rng.random() < 0.25] for t in range(T)}
+    return mod.DAG(num_tasks=T, comp=comp, succ=succ)
+
+
+def test_upward_rank_ordering():
+    dag = _diamond_dag(port)
+    r = port.upward_rank(dag)
+    assert r[0] > max(r[1], r[2]) > r[3]  # entry highest, exit lowest
+    np.testing.assert_array_equal(r, ref.upward_rank(_diamond_dag(ref)))
+
+
+@pytest.mark.parametrize("seed", [None, 0, 1, 2])
+def test_static_heft_schedules_all_respecting_deps(seed):
+    """The diamond DAG (seed None) and random DAGs: every task placed, every
+    dependency respected, and the schedule equal to the reference's."""
+    dag = _diamond_dag(port) if seed is None else _random_dag(port, seed)
+    twin = _diamond_dag(ref) if seed is None else _random_dag(ref, seed)
+    for insertion in (True, False):
+        s = port.heft_static(dag, num_pes=dag.comp.shape[1],
+                             insertion=insertion)
+        assert (s.assignment >= 0).all()
+        for t, children in dag.succ.items():
+            for c, _ in children:
+                assert s.start[c] >= s.finish[t] - 1e-9
+        if seed is None:
+            assert s.makespan <= dag.comp.min(axis=1).sum() + 10
+        w = ref.heft_static(twin, num_pes=twin.comp.shape[1],
+                            insertion=insertion)
+        for f in ("assignment", "start", "finish"):
+            np.testing.assert_array_equal(getattr(s, f), getattr(w, f))
+        assert s.makespan == w.makespan
+        np.testing.assert_array_equal(port.upward_rank(dag),
+                                      ref.upward_rank(twin))
+
+
+def _soc(seed=0, n=40, p=4):
+    rng = np.random.default_rng(seed)
+    avg = rng.uniform(1, 10, n)
+    ex = rng.uniform(1, 10, (n, p))
+    power = np.array([1.0, 1.0, 1.0, 0.3])[:p]  # accelerator is efficient
+    return avg, ex, power
+
+
+def test_lambda_zero_recovers_heft_rt():
+    avg, ex, power = _soc()
+    o0, a0, s0, f0, av0 = port.heft_rt_numpy(avg, ex, np.zeros(4))
+    o1, a1, s1, f1, av1, _ = heft_rt_energy_numpy(avg, ex, np.zeros(4),
+                                                  power, lam=0.0)
+    np.testing.assert_array_equal(o0, o1)
+    np.testing.assert_array_equal(a0, a1)
+    np.testing.assert_allclose(av0, av1)
+    for lam in (0.0, 0.5, 8.0):
+        got = heft_rt_energy_numpy(avg, ex, np.zeros(4), power, lam)
+        want = ref_energy(avg, ex, np.zeros(4), power, lam)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_energy_decreases_along_lambda():
+    avg, ex, power = _soc()
+    pts = energy_pareto(avg, ex, power)
+    assert pts == ref_energy_pareto(avg, ex, power)
+    energies = [e for _, _, e in pts]
+    assert energies[-1] <= energies[0]
+    assert min(energies) < 0.95 * energies[0]  # a real trade-off exists
+
+
+def test_makespan_energy_tradeoff_is_pareto_like():
+    avg, ex, power = _soc(seed=3)
+    pts = energy_pareto(avg, ex, power)
+    assert pts == ref_energy_pareto(avg, ex, power)
+    lam0_makespan = pts[0][1]
+    assert lam0_makespan <= min(m for _, m, _ in pts) + 1e-9
+    assert pts[-1][1] >= lam0_makespan

@@ -31,7 +31,17 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _modules()
-    assert len(mods) >= 25
+    assert len(mods) >= 36
+    for new in ("repro_torch.kernels.oddeven_sort",
+                "repro_torch.kernels.eft_select",
+                "repro_torch.core.heft_static", "repro_torch.core.heft_energy",
+                "repro_torch.models", "repro_torch.models.config",
+                "repro_torch.sched_integration.topology",
+                "repro_torch.sched_integration.serve_scheduler",
+                "repro_torch.sched_integration.cost_model",
+                "repro_torch.sched_integration.fleet",
+                "repro_torch.sched_integration.expert_placement"):
+        assert new in mods, new
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,6 +76,10 @@ def test_no_port_source_imports_jax_or_repro():
     roots = {root for line, root in _imported_roots(PORT / "sched_integration"
                                                      / "fabric.py")}
     assert {"torch", "numpy", "repro_torch"} <= roots
+    # ... the lazy imports inside functions too (cost_model reads SHAPES)
+    lazy = [line for line, root in _imported_roots(
+        PORT / "sched_integration" / "cost_model.py") if root == "repro_torch"]
+    assert len(lazy) >= 2
 
 
 def test_every_reference_module_of_the_slice_has_a_counterpart():
@@ -77,8 +91,23 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                "sched_integration/fabric.py", "runtime/apps.py",
                "runtime/workload.py", "runtime/overhead.py",
                "runtime/simulator.py"]
-    for rel in slice_1:
+    slice_2 = ["kernels/oddeven_sort.py", "kernels/eft_select.py",
+               "core/heft_static.py", "core/heft_energy.py",
+               "models/config.py", "sched_integration/topology.py",
+               "sched_integration/serve_scheduler.py",
+               "sched_integration/cost_model.py",
+               "sched_integration/fleet.py",
+               "sched_integration/expert_placement.py"]
+    for rel in slice_1 + slice_2:
         assert (REPO / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
-    for cu in ("heft_fused.cu", "fused_decision.cu"):
+    for cu in ("heft_fused.cu", "fused_decision.cu", "oddeven_sort.cu",
+               "eft_select.cu"):
         assert (PORT / "csrc" / cu).exists()
+    # every Pallas kernel of the reference has a CUDA counterpart
+    pallas = sorted(p.stem for p in (REPO / "src" / "repro" / "kernels")
+                    .glob("*.py") if "pallas_call(" in p.read_text())
+    assert pallas == ["eft_select", "fused_decision", "heft_fused",
+                      "oddeven_sort"]
+    for stem in pallas:
+        assert (PORT / "csrc" / f"{stem}.cu").exists(), stem
