@@ -11,7 +11,12 @@ first disagreement:
   of the same inputs, bitwise: B = 256 events, D in {5, 1330, 2048}, P in
   {4, 8, 40}, plus edge cases (duplicate keys, all-inf rows, NaN and -inf
   keys, subnormal registers and exec times, the sort's scratch path up to
-  the fabric's largest bucket, masks all-False and partial);
+  the fabric's largest bucket, masks all-False and partial), and the
+  staged drain's paths: the ring of row tiles (D = 8192 and 65536 at P =
+  4, D = 1330 at P = 200, D = 300 at P = 1024), every step width (P = 1,
+  3, 13), events of no-op rows only, rows made no-ops by the mask alone,
+  -inf registers beside all-inf rows, and the fabric's padding (130 and
+  223 real slots in the 256 bucket);
 * fabric — ``MappingFabric(4)`` with the ``cuda`` and ``fused`` backends on
   the card against the same backends on the CPU (their plain versions):
   resident-register event streams with queues up to 1330 slots,
@@ -41,7 +46,10 @@ The fabric, runtime, queue-event and serving runs are the main path: the
 kernels' launch counters are zeroed just before each and read just after,
 and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
-beside its plain version, its bound and, for the sort, ``torch.sort``.  The
+beside its plain version, its bound and, for the sort, ``torch.sort``; the
+two event kernels also at the main path's one-event shapes (D = 256, 223
+real slots in the 256 bucket, bucket 8), back to back and from a CUDA
+graph (``time_event_shapes``, printed and in ``--out``).  The
 last two lines are the ``kernels`` JSON record and ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a card, without the port's
 sources next to it, or on any failure.
@@ -109,8 +117,15 @@ def compare_results(got, want, what: str) -> float:
 # phase: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_event(rng, B, D, P, *, kind="ints"):
-    """Seeded inputs (f32): keys (B, D), exec (B, D, P), avail (B, P)."""
+def make_event(rng, B, D, P, *, kind="ints", mask=None):
+    """Seeded inputs (f32): keys (B, D), exec (B, D, P), avail (B, P).
+
+    Kinds beyond the integer grid: ``special`` keys (NaN, +-inf, -0.0),
+    ``subnormal`` registers, exec times and keys, ``noop`` (every row +inf),
+    ``maskonly`` (a fifth of the rows finite only on the lanes of ``mask``,
+    so the mask alone makes them no-ops), ``neginf`` (-inf registers beside
+    a fifth of all-inf rows) and ``padN`` (N real slots padded to D as the
+    fabric pads them)."""
     keys = rng.integers(0, max(2, D // 4), (B, D)).astype(np.float32)
     ex = rng.integers(1, 64, (B, D, P)).astype(np.float32)
     ex[rng.random((B, D, P)) < 0.1] = np.inf          # unsupported pairs
@@ -127,7 +142,30 @@ def make_event(rng, B, D, P, *, kind="ints"):
         ex = np.where(np.isfinite(ex), ex * tiny, ex).astype(np.float32)
         avail = (avail * tiny).astype(np.float32)
         keys = (keys * tiny).astype(np.float32)
+    if kind == "noop":
+        ex[:] = np.inf
+    if kind == "maskonly":
+        rows = rng.random((B, D)) < 0.2
+        ex[rows[..., None] & ~mask] = np.inf
+    if kind == "neginf":
+        avail[rng.random((B, P)) < 0.3] = -np.inf
+        ex[rng.random((B, D)) < 0.2] = np.inf
+    if kind.startswith("pad"):
+        n = int(kind[3:])
+        keys, ex = pad_event(keys[:, :n], ex[:, :n], D)
     return keys, ex, avail
+
+
+def pad_event(keys, ex, D):
+    """Pad (B, n) keys and (B, n, P) exec to D slots as the fabric's
+    ``_pad_event`` does: NaN keys to -inf, -inf keys and +inf exec rows in
+    the padding."""
+    B, n, P = ex.shape
+    k = np.full((B, D), -np.inf, np.float32)
+    k[:, :n] = np.where(np.isnan(keys), -np.inf, keys)
+    e = np.full((B, D, P), np.inf, np.float32)
+    e[:, :n] = ex
+    return k, e
 
 
 def phase_kernels(torch, seed: int) -> dict:
@@ -139,12 +177,24 @@ def phase_kernels(torch, seed: int) -> dict:
     cases = [(256, D, P, "ints") for D in (5, 1330, 2048) for P in (4, 8, 40)]
     cases += [(64, 300, 4, "special"), (64, 300, 40, "subnormal"),
               (4, 8192, 4, "ints"), (1, 65536, 4, "ints")]
+    # the staged drain: the ring at large P, every step width (P = 1, 3,
+    # 13), no-op rows of every kind, the fabric's padding
+    cases += [(8, 1330, 200, "ints"), (2, 300, 1024, "ints"),
+              (64, 97, 1, "ints"), (64, 300, 3, "ints"),
+              (64, 300, 13, "neginf"), (64, 300, 4, "neginf"),
+              (64, 300, 40, "neginf"), (64, 300, 4, "noop"),
+              (64, 300, 40, "noop"), (2, 8192, 4, "noop"),
+              (64, 300, 4, "maskonly"), (64, 300, 8, "maskonly"),
+              (64, 300, 40, "maskonly"), (8, 1330, 200, "maskonly"),
+              (256, 256, 4, "pad130"), (256, 256, 4, "pad223")]
     errs = {"heft_fused": 0.0, "fused_decision": 0.0}
     for B, D, P, kind in cases:
-        keys, ex, av = make_event(rng, B, D, P, kind=kind)
+        partial = rng.random(P) < 0.4
+        partial[rng.integers(P)] = True
+        keys, ex, av = make_event(rng, B, D, P, kind=kind, mask=partial)
         cpu = [torch.from_numpy(x) for x in (keys, ex, av)]
         dev = [t.cuda() for t in cpu]
-        masks = [np.zeros(P, bool), rng.random(P) < 0.4]
+        masks = [np.zeros(P, bool), partial]
         want = ScheduleResult(*heft_fused_ref(*cpu))
         got = hf.heft_fused(*dev)
         torch.cuda.synchronize()
@@ -528,35 +578,90 @@ def select_bound(B: int, D: int, P: int) -> tuple[float, str]:
                  2 * B * D * P)
 
 
+def graph_time_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn`` with the host's share taken out:
+    ``launches`` calls captured in one CUDA graph, replayed ``replays``
+    times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def time_event_shapes(torch, seed: int) -> dict:
+    """The two event kernels at the main path's shapes: the fabric-batched
+    B = 256, D = 2048, P = 4; one event of D = 256; one CEDR-twin event (223
+    real slots padded to the 256 bucket as the fabric pads them); one
+    serving event (8 real slots, bucket 8).  Each shape back to back
+    through the wrapper (``ms``, host included where it is the longer) and
+    replayed from a CUDA graph (``graph_ms``, the device's time).  Uses only
+    the wrappers' public signatures, so it times any tree of the port."""
+    from repro_torch.kernels import fused_decision as fd, heft_fused as hf
+
+    rng = np.random.default_rng(seed)
+    B, D, P = TIMED_SHAPE
+    batch = make_event(rng, B, D, P)
+    shapes = {
+        f"B{B}_D{D}_P{P}": batch,
+        "D256": tuple(np.ascontiguousarray(x[:1, :256]) for x in batch),
+        "pad223_of_256": make_event(rng, 1, 256, P, kind="pad223"),
+        "bucket8": make_event(rng, 1, 8, P),
+    }
+    mask = torch.zeros(P, dtype=torch.bool, device="cuda")
+    mask[1] = True
+    out = {"heft_fused": {}, "fused_decision": {}}
+    for shape, arrays in shapes.items():
+        keys, ex, av = (torch.from_numpy(x).cuda() for x in arrays)
+        for name, fn in (
+                ("heft_fused", lambda: hf.heft_fused(keys, ex, av)),
+                ("fused_decision",
+                 lambda: fd.fused_decision(keys, ex, av, mask))):
+            iters = 20 if shape.startswith("B") else 50
+            t = {"ms": cuda_time_ms(torch, fn, iters=iters),
+                 "graph_ms": graph_time_ms(torch, fn)}
+            out[name][shape] = t
+            log(f"[timing] {name} {shape} {tuple(keys.shape)}x{P}: "
+                f"{t['ms']:.6f} ms back to back, {t['graph_ms']:.6f} ms "
+                f"from a CUDA graph")
+    return out
+
+
 def phase_timing(torch, seed: int) -> dict:
     from repro_torch.kernels import fused_decision as fd, heft_fused as hf
     from repro_torch.kernels.ref import heft_fused_ref
 
+    shapes = time_event_shapes(torch, seed)
     rng = np.random.default_rng(seed)
     B, D, P = TIMED_SHAPE
     keys, ex, av = (torch.from_numpy(x).cuda()
                     for x in make_event(rng, B, D, P))
     mask = torch.zeros(P, dtype=torch.bool, device="cuda")
     mask[1] = True
-    out = {}
-    for name, kern, plain in (
-            ("heft_fused", lambda: hf.heft_fused(keys, ex, av),
-             lambda: heft_fused_ref(keys, ex, av)),
-            ("fused_decision", lambda: fd.fused_decision(keys, ex, av, mask),
+    out = {"event_shapes": shapes}
+    for name, plain in (
+            ("heft_fused", lambda: heft_fused_ref(keys, ex, av)),
+            ("fused_decision",
              lambda: fd.decision_ref(keys, ex, av, None, mask))):
-        ms = cuda_time_ms(torch, kern, iters=20)
+        ms = shapes[name][f"B{B}_D{D}_P{P}"]["ms"]
         plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=1)
-        k1, e1, a1 = keys[:1, :256].contiguous(), ex[:1, :256].contiguous(), av[:1]
-        one = ((lambda: hf.heft_fused(k1, e1, a1)) if name == "heft_fused"
-               else (lambda: fd.fused_decision(k1, e1, a1, mask)))
-        single = cuda_time_ms(torch, one, iters=50)
         b_ms, b_by = event_bound(B, D, P, name == "fused_decision")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
-                     "single_event_D256_ms": single}
+                     "single_event_D256_ms": shapes[name]["D256"]["ms"]}
         log(f"[timing] {name} B={B} D={D} P={P}: kernel {ms:.6f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}); one event "
-            f"D=256 P=4: {single:.6f} ms")
+            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     out.update(time_queue_kernels(torch, keys, ex, av))
     return out
 
@@ -716,7 +821,8 @@ def main() -> int:
             "launches_fabric": fabric_counts,
             "launches_runtime": runtime_counts,
             "launches_queue": queue_counts,
-            "launches_serving": serving_counts}, indent=1))
+            "launches_serving": serving_counts,
+            "event_shapes": timing["event_shapes"]}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@
 // alias avail: each warp reads its row before it writes it).
 //
 // Bound on the card: the serial chain of D drain steps (the bytes, D*P*4
-// read and 12*D written per event, take a fraction of it).  Design: phase 2
-// of heft_event.cuh with the identity slot order, the next exec row
-// prefetched while the current step reduces; one 32-thread CTA per event.
+// read and 12*D written per event, take a fraction of it).  Design: the
+// one-warp drain of heft_event.cuh (drain), rows read in queue order, the
+// next exec row prefetched while the current step reduces; one 32-thread
+// CTA per event.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE f32 adds, no FTZ/DAZ).
@@ -33,10 +34,8 @@ eft_kernel(const float* __restrict__ exec, const float* avail_in,
            float* __restrict__ finish, float* avail_out, int D, int P) {
   const int b = blockIdx.x;
   const size_t o = (size_t)b * D;
-  heft::drain<C, false>(heft::QueueOrder{}, exec + o * P,
-                        avail_in + (size_t)b * P, nullptr, nullptr,
-                        assignment + o, start + o, finish + o,
-                        avail_out + (size_t)b * P, D, P);
+  heft::drain<C>(exec + o * P, avail_in + (size_t)b * P, assignment + o,
+                 start + o, finish + o, avail_out + (size_t)b * P, D, P);
 }
 
 }  // namespace

@@ -3,8 +3,8 @@
 Counterpart of ``repro.kernels.eft_select`` (the Pallas ``_eft_kernel``,
 the PE-handler / EFT-selector feedback loop over a queue already in
 priority order).  One launch drains B independent events, one warp each,
-with the drain the fused event kernels run as their phase 2 (see the note
-at the top of the ``.cu`` file).  Its plain version is
+on the one-warp drain of ``csrc/heft_event.cuh`` (see the note at the top
+of the ``.cu`` file).  Its plain version is
 :func:`repro_torch.kernels.ref.eft_select_ref`.  The public entry point,
 with dtype promotion and leading batch dims, is
 :func:`repro_torch.kernels.eft_select`.

@@ -3,9 +3,12 @@ its wrapper.
 
 Counterpart of ``repro.kernels.heft_fused`` (the Pallas ``_fused_kernel``).
 One launch runs B independent mapping events, one CTA each: the priority
-sort in shared memory, then the serial EFT drain on one warp (see the note at
-the top of the ``.cu`` file).  The plain version beside it is
-:func:`repro_torch.kernels.ref.heft_fused_ref`.
+sort in shared memory, then the serial EFT drain over the event's rows
+staged in shared memory, its no-op rows skipped (see the note at the top of
+the ``.cu`` file).  The plain version beside it is
+:func:`repro_torch.kernels.ref.heft_fused_ref`, and
+:func:`repro_torch.kernels.ref.heft_event_sim` mirrors the kernel's drain
+step by step.
 
 The wrapper takes the kernel's exact operands and checks them; it launches
 the kernel on a CUDA tensor and runs the plain version only on a CPU tensor.

@@ -8,7 +8,7 @@ slots and the PE axis to 128 lanes because that is the TPU's (8, 128) tile
 layout, not part of the semantics.  The CUDA kernels take any queue depth
 D >= 1 (the sort pads to a power of two in shared memory, or in scratch
 above 4096 slots, with keys that sort after every real slot) and any P up to
-1024 lanes (a warp strides over them).  The wrappers here only promote to
+1024 lanes (one thread steps up to 8 lanes, a warp strides over more).  The wrappers here only promote to
 float32 / contiguous and add the batch dim the kernels want.
 
 Public API

@@ -10,6 +10,7 @@ takes them, are independent events.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.heft_rt import eft_assign
@@ -89,3 +90,133 @@ def heft_fused_ref(avg: torch.Tensor, exec_times: torch.Tensor,
         idx[..., None].expand(*idx.shape, exec_times.shape[-1]))
     pes, starts, fins, new_avail = eft_select_ref(exec_sorted, avail)
     return order, pes, starts, fins, new_avail
+
+
+SMALL_PES = 8      # up to here one thread runs the step (heft_event.cuh)
+WARP = 32
+
+
+def _finish_rank(f) -> int:
+    """Ascending rank of a finish by value, -0.0 tied with +0.0 (the wide
+    step's warp reduction takes the least; a lane holding a NaN ranks 0)."""
+    if np.isnan(f):
+        return 0
+    u = int(np.float32(f + np.float32(0.0)).view(np.uint32))  # -0.0 -> +0.0
+    return (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+
+
+def _trees(f, start, lanes):
+    """The step's two trees over one thread's finishes (a power of two of
+    them): a strict less-than tree carrying (finish, start, lane) — a
+    higher half wins only if strictly smaller, so ties go to the lower lane
+    and the winner keeps its own bits — and a NaN-propagating min tree.
+    Returns (finish, start, lane, min)."""
+    v, sv, ix, mn = list(f), list(start), list(lanes), list(f)
+    w = 1
+    while w < len(v):
+        for p in range(0, len(v) - w, 2 * w):
+            if v[p + w] < v[p]:
+                v[p], sv[p], ix[p] = v[p + w], sv[p + w], ix[p + w]
+            mn[p] = (np.float32(np.nan) if np.isnan(mn[p]) or
+                     np.isnan(mn[p + w]) else min(mn[p], mn[p + w]))
+        w *= 2
+    return v[0], sv[0], ix[0], mn[0]
+
+
+def _small_step(av, row, P):
+    """P <= 8: one thread over S = the power of two >= P lanes (pad lanes
+    hold register 0 and exec +inf).  The winner is the less-than tree's;
+    the step is taken only if the min tree's result is finite (no lane NaN,
+    the minimum finite), so a NaN lane needs no index."""
+    S = 1 << (P - 1).bit_length()
+    start = [np.float32(av[p] if p < P else 0.0) for p in range(S)]
+    f = [start[p] + np.float32(row[p]) for p in range(S)]
+    bv, bs, bi, mn = _trees(f, start, range(S))
+    return (bv, bs, bi) if np.isfinite(mn) else (np.float32(np.inf), None, -1)
+
+
+def _wide_step(av, row, P):
+    """P > 8: one warp, lane l holding lanes l, l + 32, ... (C of them, a
+    power of two); each lane runs the two trees over its own lanes and
+    ranks 0 if it holds a NaN, else by its best finish.  The warp's least
+    rank (a ``redux.sync``), the least lane at that rank (a second one),
+    whose finish and start come from its owner; taken if the least rank is
+    not 0 and the finish is finite."""
+    C = 1 << (-(-P // WARP) - 1).bit_length()
+    best = []
+    for lane in range(WARP):
+        ps = [lane + c * WARP for c in range(C)]
+        start = [np.float32(av[p] if p < P else 0.0) for p in ps]
+        f = [start[c] + np.float32(row[p] if p < P else np.inf)
+             for c, p in enumerate(ps)]
+        bv, bs, bi, mn = _trees(f, start, ps)
+        best.append((0 if np.isnan(mn) else _finish_rank(bv), bv, bs, bi))
+    least = min(b[0] for b in best)
+    wi = min(b[3] for b in best if b[0] == least)
+    _, bv, bs, _ = best[wi % WARP]
+    if least == 0 or not np.isfinite(bv):
+        return np.float32(np.inf), None, -1
+    return bv, bs, wi
+
+
+def heft_event_sim(avg: torch.Tensor, exec_times: torch.Tensor,
+                   avail: torch.Tensor, pe_mask: torch.Tensor | None = None,
+                   *, tile: int | None = None):
+    """Step-by-step mirror of the event kernel's phase 2 on one event
+    (``event_kernel`` in ``csrc/heft_event.cuh``) — an executable spec, as
+    :func:`oddeven_sort_sim` is of the sort.
+
+    The queue, in priority order, is cut into tiles of ``tile`` positions
+    (the whole queue when None, as when it fits in shared memory).  Staging
+    a tile applies the mask (+inf in masked and pad lanes, the row stride P
+    rounded up to 4), flags the live rows (a lane other than +inf), numbers
+    them by an exclusive prefix sum of the flags and copies them, in that
+    order, into the staged rows; ``slot`` maps each position to its live row
+    or to none.  The drain walks the staged rows with the kernel's step for
+    the event's P (:func:`_small_step` up to 8 PEs, :func:`_wide_step`
+    above), latches a finite winner into its register and writes one record
+    per row; the write-back gives each position its record, or (-1, +inf,
+    +inf) if it has none.
+
+    ``avg`` f32[D], ``exec_times`` f32[D, P] in queue order, ``avail``
+    f32[P], ``pe_mask`` bool[P] or None.  Returns (order, assignment,
+    start, finish, new_avail), equal bit for bit to :func:`heft_fused_ref`
+    (and, with a mask, to ``fused_decision.decision_ref``).
+    """
+    D, P = exec_times.shape
+    tile = D if tile is None else tile
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    qids = torch.arange(D, dtype=torch.int32)
+    _, order = oddeven_sort_ref(avg, qids)
+    ex = exec_times.to(torch.float32).numpy()
+    av = avail.to(torch.float32).numpy().copy()
+    stride = (P + 3) & ~3
+    assignment = np.full(D, -1, np.int32)
+    start = np.full(D, np.inf, np.float32)
+    finish = np.full(D, np.inf, np.float32)
+    step = _small_step if P <= SMALL_PES else _wide_step
+    with np.errstate(invalid="ignore"):
+        for t0 in range(0, D, tile):
+            n = min(tile, D - t0)
+            rows = np.full((n, stride), np.inf, np.float32)   # by position
+            rows[:, :P] = ex[order[t0:t0 + n].numpy()]
+            if pe_mask is not None:
+                rows[:, :P][:, pe_mask.numpy()] = np.inf
+            live = (rows != np.inf).any(axis=1)
+            slot = np.where(live, np.cumsum(live) - live, -1)  # exclusive
+            staged = np.empty((int(live.sum()), stride), np.float32)
+            staged[slot[live]] = rows[live]
+            records = []
+            for row in staged:                         # the drain: live rows
+                bv, bs, bi = step(av, row, P)
+                if bi >= 0:
+                    av[bi] = bv
+                records.append((bi, bs, bv))
+            for t in np.flatnonzero(live):             # the write-back
+                bi, bs, bv = records[slot[t]]
+                if bi >= 0:
+                    assignment[t0 + t], start[t0 + t] = bi, bs
+                    finish[t0 + t] = bv
+    return (order, torch.from_numpy(assignment), torch.from_numpy(start),
+            torch.from_numpy(finish), torch.from_numpy(av))

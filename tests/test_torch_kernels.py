@@ -505,3 +505,126 @@ def test_queue_kernels_on_card_match_plain_versions(card):
     after = K.launch_counts()
     assert after["oddeven_sort"] == before["oddeven_sort"] + 9
     assert after["eft_select"] == before["eft_select"] + 9
+
+
+# ---------------------------------------------------------------------------
+# the staged drain of the event kernels: its executable spec
+# ---------------------------------------------------------------------------
+
+def _sim_event(kind):
+    """(avg, exec, avail, mask, tile, special) of one named spec case;
+    ``special`` marks inputs the Pallas kernels do not follow (-inf keys,
+    non-finite registers, subnormals), held to ``heft_rt_numpy`` instead."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    D, P, tile, special = 40, 4, None, False
+    if kind.startswith("wide"):
+        P = 13 if kind == "wide_p13" else 40
+    elif kind == "p1":
+        P = 1
+    elif kind == "mask_only_noops":
+        P = 5
+    avg, ex, avail = _event(rng, D, P, inf_frac=0.15)
+    mask = rng.random(P) < 0.4
+    mask[rng.integers(P)] = True
+    if kind == "inf_rows_mid_and_trailing":
+        avg[-8:] = -np.inf                          # padding: drains last
+        ex[-8:] = np.inf
+        ex[[3, 11, 12]] = np.inf
+        special = True
+    elif kind == "mask_only_noops":
+        rows = rng.random(D) < 0.3
+        ex[rows[:, None] & ~mask] = np.inf          # live only on masked lanes
+    elif kind in ("neg_inf_and_nan_registers", "wide_p13"):
+        avail[0] = -np.inf
+        avail[-1] = np.nan
+        special = True
+    elif kind == "subnormal_exec":
+        tiny = np.float32(1e-45)
+        ex = np.where(np.isfinite(ex), ex * tiny, ex).astype(np.float32)
+        avail = (avail * tiny).astype(np.float32)
+        special = True
+    elif kind == "tile_divides":
+        tile = 8
+    elif kind in ("tile_does_not_divide", "wide_ring"):
+        tile = 7
+    elif kind == "all_noop_event":
+        ex[:] = np.inf
+    return avg, ex, avail, mask, tile, special
+
+
+SIM_CASES = ("inf_rows_mid_and_trailing", "mask_only_noops",
+             "neg_inf_and_nan_registers", "subnormal_exec", "tile_divides",
+             "tile_does_not_divide", "all_noop_event", "wide_ring",
+             "wide_p13", "p1")
+
+
+@pytest.mark.parametrize("kind", SIM_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_heft_event_sim_equals_plain_versions_and_jax_reference(kind, masked):
+    """The step-by-step mirror of the staged drain (no-op flags, the prefix
+    sum, the tile ring, the step of each width) is bitwise the plain
+    versions and the JAX reference: the Pallas kernels in interpret mode,
+    or ``heft_rt_numpy`` (float64, exact here) where they part from the
+    software scheduler or XLA:CPU flushes subnormals."""
+    avg, ex, avail, mask, tile, special = _sim_event(kind)
+    pe_mask = torch.from_numpy(mask) if masked else None
+    got = pref.heft_event_sim(*_t(avg, ex, avail), pe_mask, tile=tile)
+    if masked:
+        _assert_bitwise(got, fd.decision_ref(*_t(avg, ex, avail), None,
+                                             pe_mask))
+    else:
+        _assert_bitwise(got, pref.heft_fused_ref(*_t(avg, ex, avail)))
+    exm = ex.copy()
+    if masked:
+        exm[:, mask] = np.inf
+    for g, w in zip(got, heft_rt_numpy(avg, exm, avail)):
+        np.testing.assert_array_equal(g.numpy().astype(np.float64),
+                                      np.asarray(w, dtype=np.float64))
+    if not special:
+        want = (jk.decision_hw(avg, ex, avail, mask, interpret=True)
+                if masked else jk.heft_rt_hw(avg, ex, avail, interpret=True))
+        _assert_bitwise(got, want)
+    if kind == "all_noop_event" or (masked and kind == "mask_only_noops"):
+        live = ~np.isinf(exm).all(axis=1)
+        assert (got[1].numpy()[~live[got[0].numpy()]] == -1).all()
+
+
+@settings(max_examples=10, deadline=None)
+@given(n=st.integers(1, 60), p=st.integers(1, 70), tile=st.integers(1, 64),
+       seed=st.integers(0, 2**31 - 1))
+def test_heft_event_sim_any_tile_equals_plain_versions(n, p, tile, seed):
+    rng = np.random.default_rng(seed)
+    avg, ex, avail = _event(rng, n, p, inf_frac=0.3)
+    ex[rng.random((n, p)) < 0.2] = np.inf
+    mask = rng.random(p) < 0.3
+    args = _t(avg, ex, avail)
+    _assert_bitwise(pref.heft_event_sim(*args, tile=tile),
+                    pref.heft_fused_ref(*args))
+    _assert_bitwise(pref.heft_event_sim(*args, torch.from_numpy(mask),
+                                        tile=tile),
+                    fd.decision_ref(*args, None, torch.from_numpy(mask)))
+
+
+@pytest.mark.cuda
+def test_staged_drain_paths_on_card_match_plain_versions(card):
+    """The event kernels' staged drain on the card: the ring of row tiles
+    (long queues, large P), no-op rows (all-inf, padding, masked off) beside
+    a -inf register, bitwise against the plain versions."""
+    rng = np.random.default_rng(3)
+    for B, D, P in ((2, 300, 1024), (2, 1330, 200), (1, 8192, 4), (4, 256, 4)):
+        keys = rng.integers(0, 50, (B, D)).astype(np.float32)
+        ex = rng.integers(1, 64, (B, D, P)).astype(np.float32)
+        ex[rng.random((B, D)) < 0.3] = np.inf
+        keys[:, -D // 4:] = -np.inf                   # the fabric's padding
+        ex[:, -D // 4:] = np.inf
+        av = rng.integers(0, 16, (B, P)).astype(np.float32)
+        av[:, 0] = -np.inf
+        mask = torch.from_numpy(rng.random(P) < 0.3)
+        cpu = _t(keys, ex, av)
+        dev = [t.to(card) for t in cpu]
+        got = hf.heft_fused(*dev)
+        got_d = fd.fused_decision(*dev, mask.to(card))
+        torch.cuda.synchronize()
+        _assert_bitwise([t.cpu() for t in got], pref.heft_fused_ref(*cpu))
+        _assert_bitwise([t.cpu() for t in got_d],
+                        fd.decision_ref(*cpu, None, mask))
