@@ -29,12 +29,15 @@ first disagreement:
   the same run on the CPU plain path: identical ``SimResult``;
 * queue — the priority queue (``kernels.oddeven_sort``) and the EFT
   selector (``kernels.eft_select``) against their plain versions, bitwise:
-  sorts of B = 256 rows at D in {5, 1330, 2048, 65536} with f32, bf16 and
-  i32 keys (duplicates, NaN, -inf, +-0.0, a band around 2**24), drains at
-  the same D with P in {4, 8, 40, 1024} (all-inf rows, subnormal
-  registers; B shrinks as D * P grows); then the two-phase event, sort ->
-  gather -> select, through the public entry points at B = 256, P = 4,
-  equal to ``heft_fused`` on the card;
+  sorts of B = 256 rows at D in {2, 5, 8, 33, 1330, 2048, 4097, 8192,
+  65536} (one warp, the shared-memory path, the chunked scratch path) with
+  f32, bf16, f16 and i32 keys (duplicates, NaN, -inf, +-0.0, a band around
+  2**24), drains at D in {5, 1330, 2048, 65536} with P in {4, 8, 40, 1024}
+  (all-inf rows, subnormal and -inf registers, events of no-op rows only,
+  the ring of row tiles at D = 65536 and at P = 1024, the registers
+  updated in place; B shrinks as D * P grows); then the two-phase event,
+  sort -> gather -> select, through the public entry points at B = 256, P
+  = 4, equal to ``heft_fused`` on the card;
 * serving — ``simulate_serving`` over ``default_fleet()`` at 1600 requests/s
   for 3 s (the ``bench_serve_scheduler`` cell), with a replica-loss and
   straggler timeline, and over ``mesh_fleet()`` with a split / grow / merge
@@ -46,10 +49,11 @@ The fabric, runtime, queue-event and serving runs are the main path: the
 kernels' launch counters are zeroed just before each and read just after,
 and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
-beside its plain version, its bound and, for the sort, ``torch.sort``; the
-two event kernels also at the main path's one-event shapes (D = 256, 223
-real slots in the 256 bucket, bucket 8), back to back and from a CUDA
-graph (``time_event_shapes``, printed and in ``--out``).  The
+and at the main path's one-event shapes (D = 256, 223 real slots in the
+256 bucket, bucket 8), back to back and from a CUDA graph
+(``time_event_shapes``, ``time_queue_shapes``, printed and in ``--out``),
+beside its plain version, its bound and, for the sort, ``torch.sort`` +
+gather timed the same ways.  The
 last two lines are the ``kernels`` JSON record and ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a card, without the port's
 sources next to it, or on any failure.
@@ -60,6 +64,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +116,36 @@ def compare_results(got, want, what: str) -> float:
                                   f"version")
         err = max(err, max_abs_err(g, w))
     return err
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel function's name and template arguments from its mangled
+    name, e.g. ``event_kernel<SmallStep<4>, masked>``."""
+    m = re.search(r"(event_kernel|eft_kernel|sort_kernel)I(.*?)E+v", mangled)
+    if not m:
+        return mangled
+    args = [f"{a}<{n}>" for a, n in re.findall(r"(SmallStep|WideStep)ILi(\d+)",
+                                                m.group(2))]
+    args += ["masked" if b == "1" else "unmasked"
+             for b in re.findall(r"Lb([01])", m.group(2))]
+    args += re.findall(r"Bf16Bits|F16Bits", m.group(2))
+    return f"{m.group(1)}<{', '.join(args) or m.group(2).lstrip('L')}>"
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel function of nvcc's ``-Xptxas -v`` output: its
+    name, registers, stack frame and spills."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +384,9 @@ def phase_runtime(torch, K) -> dict:
 # phase: the priority queue and the EFT selector as standalone kernels
 # ---------------------------------------------------------------------------
 
-SORT_D = (5, 1330, 2048, 65536)
+SORT_D = (2, 5, 8, 33, 1330, 2048, 4097, 8192, 65536)
+SORT_DTYPES = ("f32", "bf16", "f16", "i32")
+SELECT_D = (5, 1330, 2048, 65536)
 SELECT_P = (4, 8, 40, 1024)
 MAX_SELECT_LANES = 1 << 24    # B * D * P per drain check (64 MB of exec)
 
@@ -370,7 +407,9 @@ def sort_keys(rng, B, D, dtype):
     k[(r >= 0.10) & (r < 0.14)] = -0.0
     k[(r >= 0.14) & (r < 0.18)] = 0.0
     t = torch.from_numpy(k)
-    return t.bfloat16() if dtype == "bf16" else t
+    if dtype == "bf16":
+        return t.bfloat16()
+    return t.half() if dtype == "f16" else t
 
 
 def phase_queue_checks(torch, seed: int) -> dict:
@@ -380,7 +419,7 @@ def phase_queue_checks(torch, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     errs = {"oddeven_sort": 0.0, "eft_select": 0.0}
     for D in SORT_D:
-        for dtype in ("f32", "bf16", "i32"):
+        for dtype in SORT_DTYPES:
             keys = sort_keys(rng, 256, D, dtype)
             payload = torch.from_numpy(
                 rng.integers(-2**31, 2**31 - 1, (256, D)).astype(np.int32))
@@ -393,12 +432,13 @@ def phase_queue_checks(torch, seed: int) -> dict:
             errs["oddeven_sort"] = max(errs["oddeven_sort"],
                                        max_abs_err(got[0], want[0]))
             log(f"[queue] {what}: bitwise equal")
-    for D in SORT_D:
+    for D in SELECT_D:
         for P in SELECT_P:
             B = max(1, min(256, MAX_SELECT_LANES // (D * P)))
-            # subnormal registers wherever the plain drain stays quick
-            kinds = (("ints", "subnormal") if D * P <= SORT_D[-1] * 4
-                     else ("ints",))
+            # subnormal and -inf registers, and events of no-op rows only,
+            # wherever the plain drain stays quick
+            kinds = (("ints", "subnormal", "neginf", "noop")
+                     if D * P <= SELECT_D[-1] * 4 else ("ints",))
             for kind in kinds:
                 _, ex, av = make_event(rng, B, D, P, kind=kind)
                 cpu = [torch.from_numpy(x) for x in (ex, av)]
@@ -600,39 +640,95 @@ def graph_time_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
-def time_event_shapes(torch, seed: int) -> dict:
-    """The two event kernels at the main path's shapes: the fabric-batched
-    B = 256, D = 2048, P = 4; one event of D = 256; one CEDR-twin event (223
-    real slots padded to the 256 bucket as the fabric pads them); one
-    serving event (8 real slots, bucket 8).  Each shape back to back
-    through the wrapper (``ms``, host included where it is the longer) and
-    replayed from a CUDA graph (``graph_ms``, the device's time).  Uses only
-    the wrappers' public signatures, so it times any tree of the port."""
-    from repro_torch.kernels import fused_decision as fd, heft_fused as hf
-
-    rng = np.random.default_rng(seed)
+def timed_shapes(rng) -> dict:
+    """The main path's shapes, by name, as (keys, exec, avail) arrays: the
+    fabric-batched B = 256, D = 2048, P = 4; one event of D = 256; one
+    CEDR-twin event (223 real slots padded to the 256 bucket as the fabric
+    pads them); one serving event (8 real slots, bucket 8)."""
     B, D, P = TIMED_SHAPE
     batch = make_event(rng, B, D, P)
-    shapes = {
+    return {
         f"B{B}_D{D}_P{P}": batch,
         "D256": tuple(np.ascontiguousarray(x[:1, :256]) for x in batch),
         "pad223_of_256": make_event(rng, 1, 256, P, kind="pad223"),
         "bucket8": make_event(rng, 1, 8, P),
     }
+
+
+def time_both(torch, fn, shape: str) -> dict:
+    """``fn`` back to back through its wrapper (``ms``, host included
+    where it is the longer) and replayed from a CUDA graph (``graph_ms``,
+    the device's time)."""
+    iters = 20 if shape.startswith("B") else 50
+    return {"ms": cuda_time_ms(torch, fn, iters=iters),
+            "graph_ms": graph_time_ms(torch, fn)}
+
+
+def time_event_shapes(torch, seed: int) -> dict:
+    """The two event kernels at the main path's shapes (``timed_shapes``),
+    each timed by ``time_both``.  Uses only the wrappers' public
+    signatures, so it times any tree of the port."""
+    from repro_torch.kernels import fused_decision as fd, heft_fused as hf
+
+    rng = np.random.default_rng(seed)
+    P = TIMED_SHAPE[2]
     mask = torch.zeros(P, dtype=torch.bool, device="cuda")
     mask[1] = True
     out = {"heft_fused": {}, "fused_decision": {}}
-    for shape, arrays in shapes.items():
+    for shape, arrays in timed_shapes(rng).items():
         keys, ex, av = (torch.from_numpy(x).cuda() for x in arrays)
         for name, fn in (
                 ("heft_fused", lambda: hf.heft_fused(keys, ex, av)),
                 ("fused_decision",
                  lambda: fd.fused_decision(keys, ex, av, mask))):
-            iters = 20 if shape.startswith("B") else 50
-            t = {"ms": cuda_time_ms(torch, fn, iters=iters),
-                 "graph_ms": graph_time_ms(torch, fn)}
-            out[name][shape] = t
+            t = out[name][shape] = time_both(torch, fn, shape)
             log(f"[timing] {name} {shape} {tuple(keys.shape)}x{P}: "
+                f"{t['ms']:.6f} ms back to back, {t['graph_ms']:.6f} ms "
+                f"from a CUDA graph")
+    return out
+
+
+def queue_operands(torch, keys, ex):
+    """The two standalone kernels' inputs for one event batch, as the
+    two-phase event hands them: the QIDs to sort by ``keys``, and the exec
+    rows gathered into that order."""
+    from repro_torch.kernels import oddeven_sort
+    B, D, P = ex.shape
+    qids = torch.arange(D, dtype=torch.int32,
+                        device=keys.device).expand(B, D).contiguous()
+    _, order = oddeven_sort(keys, qids)
+    exec_sorted = torch.gather(
+        ex, 1, order.long()[..., None].expand(B, D, P)).contiguous()
+    return qids, exec_sorted
+
+
+def library_sort(torch, keys, qids):
+    """The one PyTorch call for the sort's function (on keys without NaN,
+    as ``make_event`` makes them), plus the payload gather."""
+    k, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+    return k, qids.gather(1, idx)
+
+
+def time_queue_shapes(torch, seed: int) -> dict:
+    """``oddeven_sort`` (the keys carrying the QIDs), ``eft_select`` (the
+    exec rows in that order) and ``torch.sort`` + gather at the shapes of
+    ``time_event_shapes`` (the same inputs: same seed), each timed by
+    ``time_both``.  Uses only the public signatures, so it times any tree
+    of the port."""
+    from repro_torch.kernels import eft_select, oddeven_sort
+
+    rng = np.random.default_rng(seed)
+    out = {"oddeven_sort": {}, "eft_select": {}, "torch_sort_gather": {}}
+    for shape, arrays in timed_shapes(rng).items():
+        keys, ex, av = (torch.from_numpy(x).cuda() for x in arrays)
+        qids, exec_sorted = queue_operands(torch, keys, ex)
+        for name, fn in (
+                ("oddeven_sort", lambda: oddeven_sort(keys, qids)),
+                ("eft_select", lambda: eft_select(exec_sorted, av)),
+                ("torch_sort_gather",
+                 lambda: library_sort(torch, keys, qids))):
+            t = out[name][shape] = time_both(torch, fn, shape)
+            log(f"[timing] {name} {shape} {tuple(ex.shape)}: "
                 f"{t['ms']:.6f} ms back to back, {t['graph_ms']:.6f} ms "
                 f"from a CUDA graph")
     return out
@@ -640,70 +736,48 @@ def time_event_shapes(torch, seed: int) -> dict:
 
 def phase_timing(torch, seed: int) -> dict:
     from repro_torch.kernels import fused_decision as fd, heft_fused as hf
-    from repro_torch.kernels.ref import heft_fused_ref
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import eft_select_ref, heft_fused_ref
 
     shapes = time_event_shapes(torch, seed)
+    queue = time_queue_shapes(torch, seed)
     rng = np.random.default_rng(seed)
     B, D, P = TIMED_SHAPE
+    timed = f"B{B}_D{D}_P{P}"
     keys, ex, av = (torch.from_numpy(x).cuda()
                     for x in make_event(rng, B, D, P))
     mask = torch.zeros(P, dtype=torch.bool, device="cuda")
     mask[1] = True
-    out = {"event_shapes": shapes}
-    for name, plain in (
-            ("heft_fused", lambda: heft_fused_ref(keys, ex, av)),
+    qids, exec_sorted = queue_operands(torch, keys, ex)
+    out = {"event_shapes": shapes, "queue_shapes": queue}
+    for name, plain, (b_ms, b_by), times in (
+            ("heft_fused", lambda: heft_fused_ref(keys, ex, av),
+             event_bound(B, D, P, False), shapes["heft_fused"]),
             ("fused_decision",
-             lambda: fd.decision_ref(keys, ex, av, None, mask))):
-        ms = shapes[name][f"B{B}_D{D}_P{P}"]["ms"]
+             lambda: fd.decision_ref(keys, ex, av, None, mask),
+             event_bound(B, D, P, True), shapes["fused_decision"]),
+            ("oddeven_sort", lambda: ops._sort.sort_plain(keys, qids),
+             sort_bound(B, D, 4), queue["oddeven_sort"]),
+            ("eft_select", lambda: eft_select_ref(exec_sorted, av),
+             select_bound(B, D, P), queue["eft_select"])):
         plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=1)
-        b_ms, b_by = event_bound(B, D, P, name == "fused_decision")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
-                     "single_event_D256_ms": shapes[name]["D256"]["ms"]}
-        log(f"[timing] {name} B={B} D={D} P={P}: kernel {ms:.6f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
-    out.update(time_queue_kernels(torch, keys, ex, av))
-    return out
-
-
-def time_queue_kernels(torch, keys, ex, av) -> dict:
-    """The two standalone kernels on the timed shape's event: the sort of
-    its keys carrying the QIDs, and the drain of its exec rows in that
-    order (both their own inputs, as the two-phase event hands them)."""
-    from repro_torch.kernels import eft_select, oddeven_sort, ops
-    from repro_torch.kernels.ref import eft_select_ref
-
-    B, D, P = TIMED_SHAPE
-    qids = torch.arange(D, dtype=torch.int32,
-                        device="cuda").expand(B, D).contiguous()
-    _, order = oddeven_sort(keys, qids)
-    exec_sorted = torch.gather(
-        ex, 1, order.long()[..., None].expand(B, D, P)).contiguous()
-
-    def library_sort():
-        # the one PyTorch call for the same function (keys without NaN
-        # here), plus the payload gather
-        k, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
-        return k, qids.gather(1, idx)
-
-    out = {}
-    for name, kern, plain, library, (b_ms, b_by) in (
-            ("oddeven_sort", lambda: oddeven_sort(keys, qids),
-             lambda: ops._sort.sort_plain(keys, qids), library_sort,
-             sort_bound(B, D, 4)),
-            ("eft_select", lambda: eft_select(exec_sorted, av),
-             lambda: eft_select_ref(exec_sorted, av), None,
-             select_bound(B, D, P))):
-        ms = cuda_time_ms(torch, kern, iters=20)
-        plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=1)
-        lib_ms = (cuda_time_ms(torch, library, iters=20) if library
-                  else None)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms}
-        lib = (f"torch.sort + gather {lib_ms:.6f} ms" if lib_ms is not None
-               else "no PyTorch call computes it")
-        log(f"[timing] {name} B={B} D={D} P={P}: kernel {ms:.6f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+        lib = (queue["torch_sort_gather"][timed]
+               if name == "oddeven_sort" else None)
+        out[name] = {"ms": times[timed]["ms"],
+                     "graph_ms": times[timed]["graph_ms"],
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "library_ms": lib["ms"] if lib else None,
+                     "library_graph_ms": lib["graph_ms"] if lib else None,
+                     "one_event_graph_ms": {
+                         s: t["graph_ms"] for s, t in times.items()
+                         if s != timed}}
+        log(f"[timing] {name} B={B} D={D} P={P}: kernel "
+            f"{times[timed]['ms']:.6f} ms ({times[timed]['graph_ms']:.6f} "
+            f"ms from a graph), plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})" +
+            (f", torch.sort + gather {lib['ms']:.6f} ms "
+             f"({lib['graph_ms']:.6f} ms from a graph)" if lib else ""))
     return out
 
 
@@ -735,9 +809,8 @@ def main() -> int:
     K.build_kernels()
     walls["build"] = time.perf_counter() - t0
     for kern in ops.KERNELS:
-        for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {kern.name}: {line.strip()}")
+        for line in ptxas_report(kern.build_log):
+            log(f"[build] {kern.name}: {line}")
     log(f"[build] nvcc, {len(ops.KERNELS)} kernels in parallel: "
         f"{walls['build']:.3f} s")
 
@@ -809,10 +882,11 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "graph_ms": t["graph_ms"],
+            "library_graph_ms": t["library_graph_ms"],
             "shape": dict(zip("BDP", TIMED_SHAPE)),
+            "one_event_graph_ms": t["one_event_graph_ms"],
         }
-        if "single_event_D256_ms" in t:
-            entry["single_event_D256_ms"] = t["single_event_D256_ms"]
         kernels.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -822,7 +896,8 @@ def main() -> int:
             "launches_runtime": runtime_counts,
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
-            "event_shapes": timing["event_shapes"]}, indent=1))
+            "event_shapes": timing["event_shapes"],
+            "queue_shapes": timing["queue_shapes"]}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,11 @@
 //
 // Bound on the card: the serial chain of D drain steps, as in heft_fused.cu
 // (D*P*4 + P bytes read, 16*D written per event).  Same design, the same
-// event_kernel of heft_event.cuh: the sort in shared memory (global scratch
-// above 4096 slots), the rows staged in shared memory with the mask
-// applied there, so the step never sees it, and a row that the mask leaves
-// all +inf is skipped like any other no-op row.
+// event_kernel of heft_event.cuh: the sort in registers and shared memory
+// (chunks of 4096 keys and scratch passes above 4096 slots), the rows
+// staged in shared memory with the mask applied there, so the step never
+// sees it, and a row that the mask leaves all +inf is skipped like any
+// other no-op row.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE f32 adds, no FTZ/DAZ).

@@ -38,9 +38,16 @@
 //     hold, so the write-back fills them in;
 //   - CTAs of 512 threads, two an SM, so a batch of 256 events runs in one
 //     wave on 132 SMs.
+//   - the sort (sort_queue) keeps its composite keys in registers, 4 a
+//     thread at D = 2048: the stages whose pairs lie within a warp are
+//     register compares and shuffles, and only those of partner distance
+//     >= 128 pass through shared memory behind a barrier (10 of 66);
+//     above 4096 slots chunks of 4096 sort in shared memory (aliasing the
+//     row ring, free until the sort ends) and only the stages of distance
+//     >= 4096 pass over the scratch tensor.
 // What bounds it now: the step's dependent chain in one thread (an add,
-// log2 P compare-and-select levels, the guard, the latch) and the sort's
-// barrier-separated stages (PERF.md has the split).
+// log2 P compare-and-select levels, the guard, the latch), then the sort's
+// shuffle stages (PERF.md has the split).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE f32 adds, no FTZ/DAZ).

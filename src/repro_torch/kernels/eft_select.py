@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.kernels.eft_select`` (the Pallas ``_eft_kernel``,
 the PE-handler / EFT-selector feedback loop over a queue already in
-priority order).  One launch drains B independent events, one warp each,
-on the one-warp drain of ``csrc/heft_event.cuh`` (see the note at the top
-of the ``.cu`` file).  Its plain version is
-:func:`repro_torch.kernels.ref.eft_select_ref`.  The public entry point,
+priority order).  One launch drains B independent events, one CTA each,
+on the staged drain of the event kernels (``drain_event`` in
+``csrc/heft_event.cuh``: rows staged in shared memory, no-op rows skipped;
+see the note at the top of the ``.cu`` file).  Its plain version is
+:func:`repro_torch.kernels.ref.eft_select_ref`, its step-by-step mirror
+:func:`repro_torch.kernels.ref.eft_select_sim`.  The public entry point,
 with dtype promotion and leading batch dims, is
 :func:`repro_torch.kernels.eft_select`.
 

@@ -4,9 +4,12 @@ version and its wrapper.
 Counterpart of ``repro.kernels.oddeven_sort`` (the Pallas ``_sort_kernel``,
 an odd–even transposition network).  One launch sorts B independent rows,
 one CTA each, with the bitonic network over composite (key rank, slot) keys
-that the fused event kernels run as their phase 1 (see the note at the top
-of the ``.cu`` file).  The public entry point, with dtype promotion and
-leading batch dims, is :func:`repro_torch.kernels.oddeven_sort`.
+that the fused event kernels run as their phase 1: the keys in registers,
+8 a thread, shared memory only for the stages whose pairs span warps (see
+the note at the top of the ``.cu`` file); its step-by-step mirror is
+:func:`repro_torch.kernels.ref.bitonic_sort_sim`.  The public entry point,
+with dtype promotion and leading batch dims, is
+:func:`repro_torch.kernels.oddeven_sort`.
 
 The wrapper takes the kernel's exact operands (f32, bf16, f16 or i32 keys
 ``[B, D]``, i32 payload ``[B, D]``) and checks them; it launches the kernel on a CUDA

@@ -159,38 +159,27 @@ def _wide_step(av, row, P):
     return bv, bs, wi
 
 
-def heft_event_sim(avg: torch.Tensor, exec_times: torch.Tensor,
-                   avail: torch.Tensor, pe_mask: torch.Tensor | None = None,
-                   *, tile: int | None = None):
-    """Step-by-step mirror of the event kernel's phase 2 on one event
-    (``event_kernel`` in ``csrc/heft_event.cuh``) — an executable spec, as
-    :func:`oddeven_sort_sim` is of the sort.
+def _staged_drain(ex: np.ndarray, av: np.ndarray, pe_mask, tile: int | None):
+    """Phase 2 of the event kernels (``drain_event`` in
+    ``csrc/heft_event.cuh``) over ``ex`` f32[D, P], the exec rows already in
+    drain order, from the registers ``av`` (updated in place).
 
-    The queue, in priority order, is cut into tiles of ``tile`` positions
-    (the whole queue when None, as when it fits in shared memory).  Staging
-    a tile applies the mask (+inf in masked and pad lanes, the row stride P
-    rounded up to 4), flags the live rows (a lane other than +inf), numbers
-    them by an exclusive prefix sum of the flags and copies them, in that
-    order, into the staged rows; ``slot`` maps each position to its live row
-    or to none.  The drain walks the staged rows with the kernel's step for
-    the event's P (:func:`_small_step` up to 8 PEs, :func:`_wide_step`
-    above), latches a finite winner into its register and writes one record
-    per row; the write-back gives each position its record, or (-1, +inf,
-    +inf) if it has none.
-
-    ``avg`` f32[D], ``exec_times`` f32[D, P] in queue order, ``avail``
-    f32[P], ``pe_mask`` bool[P] or None.  Returns (order, assignment,
-    start, finish, new_avail), equal bit for bit to :func:`heft_fused_ref`
-    (and, with a mask, to ``fused_decision.decision_ref``).
+    The queue is cut into tiles of ``tile`` positions (the whole queue when
+    None, as when it fits in shared memory).  Staging a tile applies the
+    mask (+inf in masked and pad lanes, the row stride P rounded up to 4),
+    flags the live rows (a lane other than +inf), numbers them by an
+    exclusive prefix sum of the flags and copies them, in that order, into
+    the staged rows; ``slot`` maps each position to its live row or to
+    none.  The drain walks the staged rows with the kernel's step for the
+    event's P (:func:`_small_step` up to 8 PEs, :func:`_wide_step` above),
+    latches a finite winner into its register and writes one record per
+    row; the write-back gives each position its record, or (-1, +inf,
+    +inf) if it has none.  Returns (assignment, start, finish) as numpy.
     """
-    D, P = exec_times.shape
+    D, P = ex.shape
     tile = D if tile is None else tile
     if tile < 1:
         raise ValueError(f"tile must be >= 1, got {tile}")
-    qids = torch.arange(D, dtype=torch.int32)
-    _, order = oddeven_sort_ref(avg, qids)
-    ex = exec_times.to(torch.float32).numpy()
-    av = avail.to(torch.float32).numpy().copy()
     stride = (P + 3) & ~3
     assignment = np.full(D, -1, np.int32)
     start = np.full(D, np.inf, np.float32)
@@ -200,7 +189,7 @@ def heft_event_sim(avg: torch.Tensor, exec_times: torch.Tensor,
         for t0 in range(0, D, tile):
             n = min(tile, D - t0)
             rows = np.full((n, stride), np.inf, np.float32)   # by position
-            rows[:, :P] = ex[order[t0:t0 + n].numpy()]
+            rows[:, :P] = ex[t0:t0 + n]
             if pe_mask is not None:
                 rows[:, :P][:, pe_mask.numpy()] = np.inf
             live = (rows != np.inf).any(axis=1)
@@ -218,5 +207,206 @@ def heft_event_sim(avg: torch.Tensor, exec_times: torch.Tensor,
                 if bi >= 0:
                     assignment[t0 + t], start[t0 + t] = bi, bs
                     finish[t0 + t] = bv
-    return (order, torch.from_numpy(assignment), torch.from_numpy(start),
-            torch.from_numpy(finish), torch.from_numpy(av))
+    return assignment, start, finish
+
+
+def heft_event_sim(avg: torch.Tensor, exec_times: torch.Tensor,
+                   avail: torch.Tensor, pe_mask: torch.Tensor | None = None,
+                   *, tile: int | None = None):
+    """Step-by-step mirror of the event kernel's phase 2 on one event
+    (``event_kernel`` in ``csrc/heft_event.cuh``) — an executable spec, as
+    :func:`bitonic_sort_sim` is of its sort: the queue sorted by ``avg``,
+    then :func:`_staged_drain` over the exec rows in that order.
+
+    ``avg`` f32[D], ``exec_times`` f32[D, P] in queue order, ``avail``
+    f32[P], ``pe_mask`` bool[P] or None.  Returns (order, assignment,
+    start, finish, new_avail), equal bit for bit to :func:`heft_fused_ref`
+    (and, with a mask, to ``fused_decision.decision_ref``).
+    """
+    D = exec_times.shape[0]
+    qids = torch.arange(D, dtype=torch.int32)
+    _, order = oddeven_sort_ref(avg, qids)
+    ex = exec_times.to(torch.float32).numpy()[order.numpy()]
+    av = avail.to(torch.float32).numpy().copy()
+    outs = _staged_drain(ex, av, pe_mask, tile)
+    return (order, *(torch.from_numpy(x) for x in (*outs, av)))
+
+
+def eft_select_sim(exec_sorted: torch.Tensor, avail: torch.Tensor, *,
+                   tile: int | None = None):
+    """Step-by-step mirror of the ``eft_select`` kernel on one event: the
+    staged drain of :func:`heft_event_sim` over rows already in priority
+    order (no sort, position t drains row t, no order output).
+
+    ``exec_sorted`` f32[D, P], ``avail`` f32[P].  Returns (assignment,
+    start, finish, new_avail), equal bit for bit to :func:`eft_select_ref`.
+    """
+    ex = exec_sorted.to(torch.float32).numpy()
+    av = avail.to(torch.float32).numpy().copy()
+    outs = _staged_drain(ex, av, None, tile)
+    return tuple(torch.from_numpy(x) for x in (*outs, av))
+
+
+# ---------------------------------------------------------------------------
+# the priority sort's schedule (sort_queue in csrc/heft_event.cuh)
+# ---------------------------------------------------------------------------
+
+SORT_CHUNK = 4096     # keys sorted in shared memory at once
+ALL_ONES = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def sort_grain(N: int, threads: int) -> int:
+    """Keys a thread holds in ``sort_queue``: N / threads (a chunk's above
+    4096 slots), from 2 to 8."""
+    return min(max(min(N, SORT_CHUNK) // threads, 2), 8)
+
+
+def desc_rank(keys: torch.Tensor) -> np.ndarray:
+    """The kernel's u32 rank of each key (``desc_rank`` in
+    ``heft_event.cuh``): ascending rank is descending key order, NaN after
+    -inf, -0.0 with +0.0 (f32, and bf16 / f16 as the f32 they widen to);
+    int32 keys by the exact integer order."""
+    if keys.dtype == torch.int32:
+        u = keys.numpy().view(np.uint32).astype(np.uint64)
+        return ~(u ^ 0x80000000) & 0xFFFFFFFF
+    f = keys.to(torch.float32).numpy()
+    u = (f + np.float32(0.0)).view(np.uint32).astype(np.uint64)  # -0 -> +0
+    asc = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return np.where(np.isnan(f), 0xFFFFFFFF, ~asc & 0xFFFFFFFF).astype(
+        np.uint64)
+
+
+def _swz(i: np.ndarray) -> np.ndarray:
+    """Key i's place in the shared buffer between register phases."""
+    return i ^ (((i >> 4) & 7) << 1)
+
+
+def _pair(a: np.ndarray, b: np.ndarray, up: np.ndarray):
+    """order_pair: the smaller key first where ``up``, else the larger."""
+    swap = (a > b) == up
+    return np.where(swap, b, a), np.where(swap, a, b)
+
+
+def _buffer_stage(s, n, g0, k, j, swizzled, count):
+    """A stage over a buffer, pair by pair (``buffer_stage``)."""
+    p = np.arange(n // 2)
+    i = ((p & ~(j - 1)) << 1) | (p & (j - 1))
+    a, b = (_swz(i), _swz(i | j)) if swizzled else (i, i | j)
+    s[a], s[b] = _pair(s[a], s[b], ((g0 | i) & k) == 0)
+    count["global" if not swizzled else "shared"] += 1
+    count["barriers"] += 1
+
+
+def _register_stages(v, idx, E, k, up, count):
+    """The stages j < min(k, E) of level k within each thread's E keys,
+    ``up`` the direction of each key's pair."""
+    e = idx % E
+    j = min(k, E) // 2
+    while j > 0:
+        lo = (e & j) == 0
+        v = v.copy()
+        v[idx[lo]], v[idx[lo] | j] = _pair(v[lo], v[idx[lo] | j], up[lo])
+        count["register"] += 1
+        j //= 2
+    return v
+
+
+def _bitonic_levels(v, n, g0, k0, k1, E, count):
+    """``bitonic_levels``: v holds the keys of the threads, thread t at
+    v[t*E : t*E + E] (past n, the padding lanes of warp 0); levels k0..k1
+    over n keys with global indices from g0.  Returns v."""
+    idx = np.arange(len(v))
+    t, e = idx // E, idx % E
+    i0 = g0 + t * E
+    holders = n // E
+    k = k0
+    if k0 == 2:                                   # sort_own: levels 2..E
+        while k <= E:
+            up = ((i0 & E) == 0) if k == E else ((e & k) == 0)
+            v = _register_stages(v, idx, E, k, up, count)
+            k *= 2
+    while k <= k1:
+        j = min(k, n) // 2
+        if j >= 32 * E:
+            s = np.zeros(n, np.uint64)
+            s[_swz(idx[:n])] = v[:n]                  # put_keys, swizzled
+            count["barriers"] += 1
+            while j >= 32 * E:
+                _buffer_stage(s, n, g0, k, j, True, count)
+                j //= 2
+            v = v.copy()
+            v[:n] = s[_swz(idx[:n])]                  # get_keys
+        while j >= E:                                 # shuffle_stage
+            # a holder's partner lane holds keys too
+            assert ((t >= holders) | ((t ^ (j // E)) < holders)).all()
+            y = v[idx ^ j]       # the same key of lane ^ (j / E)
+            keep_min = ((i0 & j) == 0) == ((i0 & k) == 0)
+            v = np.where(keep_min == (y < v), y, v)
+            count["shuffle"] += 1
+            j //= 2
+        v = _register_stages(v, idx, E, k, (i0 & k) == 0, count)
+        k *= 2
+    return v
+
+
+def bitonic_sort_sim(keys: torch.Tensor, payload: torch.Tensor,
+                     threads: int):
+    """Step-by-step mirror of ``sort_queue`` (``csrc/heft_event.cuh``) on
+    one queue, sorted by a block of ``threads`` threads — an executable
+    spec of its schedule, vectorised per stage.
+
+    The composite keys (``desc_rank`` of the key, slot) of the D keys and
+    the N - D pads (rank 0xFFFFFFFF) sit E = :func:`sort_grain` a thread.
+    Each bitonic stage (k, j) runs where the kernel runs it: j < E within a
+    thread, E <= j < 32 E as a shuffle between lanes of a warp, j >= 32 E
+    through the swizzled shared buffer behind a barrier; up to 32 E slots,
+    one warp (its lanes past the keys hold all-ones padding).  Above 4096
+    slots, chunks of 4096 sort first, then each level runs its stages j >=
+    4096 as passes over the scratch buffer and the rest chunk by chunk.
+    Every compare's direction comes from the key's index in the queue.
+
+    ``keys`` f32, bf16, f16 or i32 [D], ``payload`` i32 [D].  Returns
+    (sorted keys, sorted payload, counts): keys and payload gathered from
+    the inputs by the sorted slot (equal bit for bit to
+    ``oddeven_sort.sort_plain``), and the stages run of each kind with the
+    block barriers they took.
+    """
+    D = keys.shape[0]
+    N = 2
+    while N < D:
+        N *= 2
+    E = sort_grain(N, threads)
+    n = min(N, SORT_CHUNK)
+    if threads & (threads - 1) or not 32 <= threads <= 1024 or \
+            threads < n // E:
+        raise ValueError(f"{threads} threads cannot sort {N} slots")
+    ranks = np.full(N, 0xFFFFFFFF, np.uint64)
+    ranks[:D] = desc_rank(keys)
+    comp = (ranks << np.uint64(32)) | np.arange(N, dtype=np.uint64)
+    count = dict.fromkeys(("register", "shuffle", "shared", "global",
+                           "barriers"), 0)
+    if N <= SORT_CHUNK:
+        v = np.full(max(N, 32 * E), ALL_ONES)       # warp 0's padding lanes
+        v[:N] = comp
+        buf = _bitonic_levels(v, N, 0, 2, N, E, count)[:N]
+        count["barriers"] += 1                         # before the final put
+    else:
+        buf = np.empty(N, np.uint64)
+        for g0 in range(0, N, SORT_CHUNK):
+            buf[g0:g0 + SORT_CHUNK] = _bitonic_levels(
+                comp[g0:g0 + SORT_CHUNK], SORT_CHUNK, g0, 2, SORT_CHUNK, E,
+                count)
+        k = 2 * SORT_CHUNK
+        while k <= N:
+            j = k // 2
+            while j >= SORT_CHUNK:
+                _buffer_stage(buf, N, 0, k, j, False, count)
+                j //= 2
+            count["barriers"] += 1
+            for g0 in range(0, N, SORT_CHUNK):
+                buf[g0:g0 + SORT_CHUNK] = _bitonic_levels(
+                    buf[g0:g0 + SORT_CHUNK], SORT_CHUNK, g0, k, k, E, count)
+            k *= 2
+    count["barriers"] += 1                             # the closing one
+    order = torch.from_numpy((buf[:D] & 0xFFFFFFFF).astype(np.int64))
+    return keys[order], payload[order], count

@@ -72,6 +72,11 @@ def _assert_bitwise(got, want):
         np.testing.assert_array_equal(g, w)
 
 
+def _key_bits(t):
+    """Sort keys as integers of their width, for bitwise comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 @settings(max_examples=8, deadline=None)
 @given(n=st.integers(1, 40), p=st.integers(1, 12),
        seed=st.integers(0, 2**31 - 1))
@@ -475,36 +480,48 @@ def test_sort_gather_select_composes_to_heft_rt_hw(b, n, p, seed):
 
 @pytest.mark.cuda
 def test_queue_kernels_on_card_match_plain_versions(card):
+    """The standalone sort (one warp, shared memory, chunks and scratch
+    passes above 4096 slots; f32, bf16, f16 and i32 keys) and the
+    standalone drain (no-op rows, -inf registers, the ring at D = 65536 and
+    at P = 1024, registers in place) on the card, bitwise against their
+    plain versions."""
     rng = np.random.default_rng(1)
     before = dict(K.launch_counts())
-    for B, D in ((8, 5), (8, 1330), (2, 8192)):
+    sorts = drains = 0
+    for B, D in ((8, 2), (8, 5), (8, 8), (8, 1330), (2, 4097), (2, 8192),
+                 (1, 65536)):
         keys = rng.integers(0, 50, (B, D)).astype(np.float32)
         keys[rng.random((B, D)) < 0.05] = np.nan
         ikeys = rng.integers(2**24 - 9, 2**24 + 9, (B, D)).astype(np.int32)
         payload = rng.integers(-9, 9, (B, D)).astype(np.int32)
-        for k in (torch.from_numpy(keys), torch.from_numpy(keys).bfloat16(),
-                  torch.from_numpy(ikeys)):
+        f32 = torch.from_numpy(keys)
+        for k in (f32, f32.bfloat16(), f32.half(), torch.from_numpy(ikeys)):
             p = torch.from_numpy(payload)
             got = K.oddeven_sort(k.to(card), p.to(card))
             want = ops._sort.sort_plain(k, p)
-            assert torch.equal(got[0].cpu().view(torch.int16 if
-                                                 k.element_size() == 2 else
-                                                 torch.int32),
-                               want[0].view(torch.int16 if
-                                            k.element_size() == 2 else
-                                            torch.int32))
+            assert torch.equal(_key_bits(got[0].cpu()), _key_bits(want[0]))
             assert torch.equal(got[1].cpu(), want[1])
-        for P in (4, 40, 1024):
-            ex = rng.integers(1, 64, (B, D, P)).astype(np.float32)
-            ex[rng.random((B, D)) < 0.05] = np.inf
-            av = rng.integers(0, 16, (B, P)).astype(np.float32)
-            got = K.eft_select(*(t.to(card) for t in _t(ex, av)))
-            _assert_bitwise([t.cpu() for t in got],
-                            pref.eft_select_ref(*_t(ex, av)))
+            sorts += 1
+        for P in ((4, 40, 1024) if D <= 8192 else (4,)):
+            for kind in ("ints", "noop", "neg_inf"):
+                ex = rng.integers(1, 64, (B, D, P)).astype(np.float32)
+                ex[rng.random((B, D)) < 0.05] = np.inf
+                av = rng.integers(0, 16, (B, P)).astype(np.float32)
+                if kind == "noop":
+                    ex[:] = np.inf
+                elif kind == "neg_inf":
+                    av[rng.random((B, P)) < 0.3] = -np.inf
+                regs = torch.from_numpy(av).to(card)
+                got = K.eft_select(torch.from_numpy(ex).to(card), regs,
+                                   out_avail=regs)
+                assert got[3] is regs
+                _assert_bitwise([t.cpu() for t in got],
+                                pref.eft_select_ref(*_t(ex, av)))
+                drains += 1
     torch.cuda.synchronize()
     after = K.launch_counts()
-    assert after["oddeven_sort"] == before["oddeven_sort"] + 9
-    assert after["eft_select"] == before["eft_select"] + 9
+    assert after["oddeven_sort"] == before["oddeven_sort"] + sorts
+    assert after["eft_select"] == before["eft_select"] + drains
 
 
 # ---------------------------------------------------------------------------
@@ -628,3 +645,151 @@ def test_staged_drain_paths_on_card_match_plain_versions(card):
         _assert_bitwise([t.cpu() for t in got], pref.heft_fused_ref(*cpu))
         _assert_bitwise([t.cpu() for t in got_d],
                         fd.decision_ref(*cpu, None, mask))
+
+
+# ---------------------------------------------------------------------------
+# the sort's and the standalone drain's executable specs
+# ---------------------------------------------------------------------------
+
+SIM_SORT_D = (1, 2, 5, 8, 33, 64, 65, 256, 1330, 2048, 4097, 8192)
+SIM_THREADS = (32, 64, 128, 256, 512, 1024)   # every count a launcher uses
+
+
+def _sort_case(D, dtype, seed):
+    """Keys with heavy ties and every special value of the type: NaN, +-inf
+    and +-0.0 for floats (small integers, exact in 16 bits); for int32 a
+    band above 2**24 (apart in int32, tied in float32) and the extremes."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        k = rng.integers(-40, 40, D).astype(np.int32)
+        k[rng.random(D) < 0.4] += 2**24
+        k[rng.random(D) < 0.02] = np.iinfo(np.int32).min
+        k[rng.random(D) < 0.02] = np.iinfo(np.int32).max
+    else:
+        k = rng.integers(-6, 6, D).astype(np.float32)
+        r = rng.random(D)
+        k[r < 0.05] = np.nan
+        k[(r >= 0.05) & (r < 0.1)] = -np.inf
+        k[(r >= 0.1) & (r < 0.14)] = np.inf
+        k[(r >= 0.14) & (r < 0.2)] = -0.0
+        k[(r >= 0.2) & (r < 0.25)] = 0.0
+    payload = rng.integers(-2**31, 2**31 - 1, D).astype(np.int32)
+    return k, payload
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int32"])
+@pytest.mark.parametrize("D", SIM_SORT_D)
+def test_bitonic_sort_sim_equals_plain_versions_and_jax_reference(D, dtype):
+    """The mirror of ``sort_queue``'s schedule (keys in registers, shuffles,
+    the swizzled shared buffer, chunks and scratch passes above 4096 slots,
+    one warp for small queues) at every thread count a launcher gives it is
+    bitwise the plain sort, the JAX oracle and the Pallas kernel in
+    interpret mode (on keys without NaN and -inf, which the Pallas wrapper
+    mishandles: ROADMAP queue 3)."""
+    k, payload = _sort_case(D, dtype, seed=D)
+    keys = torch.from_numpy(k).to(getattr(torch, dtype))
+    p = torch.from_numpy(payload)
+    want_k, want_p = ops._sort.sort_plain(keys[None], p[None])
+    N = max(2, 1 << (D - 1).bit_length())
+    ran = 0
+    for threads in SIM_THREADS:
+        if threads < min(N, pref.SORT_CHUNK) // pref.sort_grain(N, threads):
+            continue                       # fewer than 8 keys a thread
+        got_k, got_p, _ = pref.bitonic_sort_sim(keys, p, threads)
+        assert torch.equal(_key_bits(got_k), _key_bits(want_k[0]))
+        assert torch.equal(got_p, want_p[0])
+        ran += 1
+    assert ran >= 2
+    j_keys = jnp.asarray(k, dtype=dtype)
+    if dtype != "int32":    # the JAX oracle compares int32 keys in float32
+        jk_, jp_ = jref.oddeven_sort_ref(j_keys, jnp.asarray(payload))
+        np.testing.assert_array_equal(got_p.numpy(), np.asarray(jp_))
+        np.testing.assert_array_equal(got_k.float().numpy(),
+                                      np.asarray(jk_.astype(jnp.float32)))
+        k = np.where(np.isnan(k) | np.isneginf(k), -5.0, k).astype(np.float32)
+        keys = torch.from_numpy(k).to(getattr(torch, dtype))
+        j_keys = jnp.asarray(k, dtype=dtype)
+        got_k, got_p, _ = pref.bitonic_sort_sim(keys, p, 512)
+    pk, pp = jk.oddeven_sort(j_keys, jnp.asarray(payload), interpret=True)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(pp))
+    np.testing.assert_array_equal(got_k.float().numpy(),
+                                  np.asarray(pk.astype(jnp.float32)))
+
+
+def test_bitonic_sort_sim_largest_bucket_and_its_schedule():
+    """The fabric's largest bucket, 65536 slots, at the launchers' 512
+    threads: bitwise the plain sort, with 10 passes over the scratch
+    buffer.  And the schedule's split: at 2048 slots and 256 threads (8 keys
+    each) only the 6 stages of partner distance >= 256 take a barrier, of
+    66; a queue of up to 32 E slots sorts in one warp with none but the
+    closing two."""
+    k, payload = _sort_case(65536, "float32", seed=1)
+    keys, p = torch.from_numpy(k), torch.from_numpy(payload)
+    got_k, got_p, count = pref.bitonic_sort_sim(keys, p, 512)
+    want_k, want_p = ops._sort.sort_plain(keys[None], p[None])
+    assert torch.equal(_key_bits(got_k), _key_bits(want_k[0]))
+    assert torch.equal(got_p, want_p[0])
+    assert count["global"] == 10
+    k, payload = _sort_case(2048, "float32", seed=2)
+    _, _, count = pref.bitonic_sort_sim(torch.from_numpy(k),
+                                        torch.from_numpy(payload), 256)
+    assert count == {"register": 30, "shuffle": 30, "shared": 6, "global": 0,
+                     "barriers": 6 + 3 + 2}
+    for D, threads in ((8, 64), (64, 512), (256, 32)):
+        _, _, count = pref.bitonic_sort_sim(
+            torch.arange(D, dtype=torch.float32),
+            torch.arange(D, dtype=torch.int32), threads)
+        assert count["shared"] == count["global"] == 0
+        assert count["barriers"] == 2
+    with pytest.raises(ValueError):
+        pref.bitonic_sort_sim(keys, p, 256)      # 16 keys a thread
+
+
+def _select_case(kind, P):
+    """(exec f32[D, P] in queue order, avail f32[P], tile, special) of one
+    named drain case; ``special`` marks inputs held to ``heft_rt_numpy``
+    instead of the Pallas kernel (-inf registers, subnormals)."""
+    rng = np.random.default_rng(P * 31 + sum(map(ord, kind)))
+    D, tile, special = 40, None, False
+    ex = rng.integers(1, 16, (D, P)).astype(np.float32)
+    ex[rng.random((D, P)) < 0.15] = np.inf
+    ex[rng.random(D) < 0.15] = np.inf                 # all-inf rows
+    avail = rng.integers(0, 8, P).astype(np.float32)
+    if kind == "ring":
+        tile = 7
+    elif kind == "noop_rows":
+        ex[rng.random(D) < 0.5] = np.inf
+        ex[-6:] = np.inf                               # trailing no-ops
+        tile = 8
+    elif kind == "neg_inf_registers":
+        avail[rng.random(P) < 0.3] = -np.inf
+        avail[0] = -np.inf
+        special = True
+    elif kind == "subnormal":
+        tiny = np.float32(1e-45)
+        ex = np.where(np.isfinite(ex), ex * tiny, ex).astype(np.float32)
+        avail = (avail * tiny).astype(np.float32)
+        special = True
+    return ex, avail, tile, special
+
+
+@pytest.mark.parametrize("kind", ["ints", "ring", "noop_rows",
+                                  "neg_inf_registers", "subnormal"])
+@pytest.mark.parametrize("P", [1, 3, 4, 8, 13, 40, 200])
+def test_eft_select_sim_equals_plain_versions_and_jax_reference(P, kind):
+    """The mirror of the standalone drain (the event kernels' staging, no-op
+    skipping, tile ring and steps over rows already in queue order) is
+    bitwise ``eft_select_ref`` and the JAX reference: the Pallas kernel in
+    interpret mode, or ``heft_rt_numpy`` (float64, exact here) where the
+    Pallas guard differs (-inf registers) or XLA:CPU flushes subnormals."""
+    ex, avail, tile, special = _select_case(kind, P)
+    got = pref.eft_select_sim(*_t(ex, avail), tile=tile)
+    _assert_bitwise(got, pref.eft_select_ref(*_t(ex, avail)))
+    keys = -np.arange(len(ex), dtype=np.float32)     # identity priority order
+    for g, w in zip(got, heft_rt_numpy(keys, ex, avail)[1:]):
+        np.testing.assert_array_equal(g.numpy().astype(np.float64),
+                                      np.asarray(w, dtype=np.float64))
+    if special:
+        assert (got[0].numpy() == -1).any() or kind == "subnormal"
+    else:
+        _assert_bitwise(got, jk.eft_select(ex, avail, interpret=True))
