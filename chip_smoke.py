@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out FILE] [--seed N]
 
 Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-one process per source, all at once), then runs five phases and fails on the
+one process per source, all at once), then runs six phases and fails on the
 first disagreement:
 
 * kernels — each kernel against its plain PyTorch version, run on CPU copies
@@ -43,11 +43,24 @@ first disagreement:
   straggler timeline, and over ``mesh_fleet()`` with a split / grow / merge
   timeline, each with ``make_policy_fabric("cuda")`` and ``("fused")`` on
   the card, against the same run with the float32 plain path (``torch`` on
-  the CPU): identical ``ServeResult``.
+  the CPU): identical ``ServeResult``;
+* serve — deepseek-7b at its published widths and depth (30 layers,
+  d_model 4096, vocab 102400, bf16, random weights from a seeded
+  generator on the card) shared by three replicas (speeds 1.0 / 0.7 / 1.4)
+  behind ``HeftFrontEnd.run_continuous(fused=True)`` on a
+  ``MappingFabric(3, backend="fused", device_counters=True)``: 8 requests
+  of 8-47 prompt tokens and 16 new tokens, staggered arrivals, four lanes,
+  16-token pages.  Every request's tokens must equal the dense
+  ``generate`` on the card bitwise, every in-tick decision the plain
+  ``decision_ref`` on CPU copies of its staged operands, the
+  ``fused_decision`` launches the decision ticks plus the host events, and
+  the pages allocated those freed.  Then the decode tick (plain and
+  carrying a decision), the decision kernel, a prefill and a one-lane
+  tick are timed beside the tick's bytes bound.
 
-The fabric, runtime, queue-event and serving runs are the main path: the
-kernels' launch counters are zeroed just before each and read just after,
-and each kernel must have launched on its path.  Then each kernel is timed
+The fabric, runtime, queue-event, serving and serve runs are the main
+path: the kernels' launch counters are zeroed just before each and read
+just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
 and at the main path's one-event shapes (D = 256, 223 real slots in the
 256 bucket, bucket 8), back to back and from a CUDA graph
@@ -782,6 +795,227 @@ def phase_timing(torch, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the serving path at full width (main path, part 4)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "deepseek_7b"          # 30 layers, d_model 4096, vocab 102400
+SERVE_SPEEDS = (1.0, 0.7, 1.4)      # the launcher's three replicas
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 16
+SERVE_MAX_BATCH, SERVE_PAGE_SIZE, SERVE_MAX_LEN = 4, 16, 128
+BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
+
+
+def serve_requests(rng, vocab: int):
+    """The launcher's recipe: prompts of 8-48 tokens, 16 new tokens each."""
+    return [(rng.integers(0, vocab, rng.integers(8, 48)).astype(np.int32),
+             SERVE_NEW_TOKENS) for _ in range(SERVE_REQUESTS)]
+
+
+def record_decisions(fab):
+    """Wrap a fused fabric so every in-tick decision is kept with CPU copies
+    of the operands it was staged with (taken before the tick's kernel
+    writes the registers), and host-path events are counted."""
+    staged, decided, host = [], [], []
+    stage, commit, map_event = (fab.tick_decision_inputs,
+                                fab.commit_tick_decision, fab.map_event)
+
+    def stage_rec(avg, exec_times):
+        ops = stage(avg, exec_times)
+        a_p, ex_p, _, avail, mask, _, _ = ops
+        staged.append((a_p.copy(), ex_p.copy(), avail.cpu().clone(),
+                       mask.cpu().clone(), len(avg)))
+        return ops
+
+    def commit_rec(n, buf, new_avail, counters=None):
+        out = commit(n, buf, new_avail, counters)
+        decided.append(out)
+        return out
+
+    def map_rec(*args, **kw):
+        host.append(1)
+        return map_event(*args, **kw)
+
+    fab.tick_decision_inputs = stage_rec
+    fab.commit_tick_decision = commit_rec
+    fab.map_event = map_rec
+    return staged, decided, host
+
+
+def unwrap(fab) -> None:
+    """Undo :func:`record_decisions` (the class's methods again)."""
+    for name in ("tick_decision_inputs", "commit_tick_decision", "map_event"):
+        delattr(fab, name)
+
+
+def check_decisions(torch, staged, decided, num_pes: int) -> None:
+    """Each in-tick decision, bitwise, against ``decision_ref`` (the plain
+    version) on the CPU copies of its staged operands."""
+    from repro_torch.kernels import decision_ref
+    require(len(staged) == len(decided) > 0,
+            f"{len(staged)} staged / {len(decided)} committed decisions")
+    for k, ((a_p, ex_p, avail, mask, n), got) in enumerate(zip(staged,
+                                                               decided)):
+        want = decision_ref(torch.from_numpy(a_p), torch.from_numpy(ex_p),
+                            avail, None, mask)
+        want = (want.order[:n], want.assignment[:n], want.start_time[:n],
+                want.finish_time[:n], want.new_avail[:num_pes])
+        for name, g, w in zip(("order", "assignment", "start", "finish",
+                               "new_avail"), got, want):
+            require(bits_equal(torch.from_numpy(np.ascontiguousarray(g)), w),
+                    f"serve: in-tick decision {k} {name} differs from the "
+                    f"plain version")
+
+
+def tick_bound(cfg, params_per_token: int, kv_tokens: int,
+               lanes: int) -> tuple[float, str]:
+    """Least time for one decode tick: the weights read once (the embedding
+    table only at the lanes' rows), each lane's cached K and V up to its
+    position read once and its new token's written once, the int32 tokens
+    in and out; 2 operations a weight a lane, in bf16."""
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    nbytes = 2 * params_per_token + kv * (kv_tokens + lanes) + 8 * lanes
+    ops = 2.0 * params_per_token * lanes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_serve_tick(torch, eng, fab, rng, cfg, seed: int) -> dict:
+    """Decode ticks at the full lane width, plain and carrying a decision,
+    the decision kernel alone at the tick's event shape, and a prefill,
+    each timed with CUDA events."""
+    from repro_torch.kernels import decision_hw
+    rt = eng.paged
+    for _ in range(eng.lanes):
+        prompt = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+        require(eng.admit(prompt, 64) is not None, "timing: admit refused")
+    for _ in range(2):
+        eng.decode_tick()
+    kv_tokens = sum(rt.slots[s].write_pos + 1 for s in rt.active_slots())
+    iters = 10
+    plain_ms = cuda_time_ms(torch, eng.decode_tick, iters=iters, warmup=0)
+    # the positions advance by one a tick: the mean over the timed ticks
+    kv_tokens += eng.lanes * (iters - 1) // 2
+    avg = rng.integers(1, 8, eng.lanes).astype(np.float64)
+    ex = rng.integers(1, 64, (eng.lanes, fab.num_pes)).astype(np.float64)
+    fused_ms = cuda_time_ms(torch, lambda: eng.decode_tick((avg, ex, fab)),
+                            iters=iters, warmup=0)
+    a_p, ex_p, _, avail, mask, _, _ = fab.tick_decision_inputs(avg, ex)
+    a_d, ex_d = torch.from_numpy(a_p).cuda(), torch.from_numpy(ex_p).cuda()
+    regs = avail.clone()
+    decision_ms = graph_time_ms(
+        torch, lambda: decision_hw(a_d, ex_d, regs, mask, out_avail=regs))
+    prompt = rng.integers(0, cfg.vocab_size, (1, 47)).astype(np.int32)
+    prefill_ms = cuda_time_ms(torch, lambda: eng.start(prompt), iters=5)
+    # what the fixed lane width costs a lone request: one lane, unpadded
+    one = type(eng)(cfg, eng.params, max_len=eng.max_len, lanes=1)
+    one.start_paged(max_batch=1, page_size=SERVE_PAGE_SIZE)
+    one.admit(prompt[0, :32], 64)
+    one_lane_ms = cuda_time_ms(torch, one.decode_tick, iters=iters)
+    per_token = cfg.param_count() - cfg.vocab_size * cfg.d_model + \
+        eng.lanes * cfg.d_model
+    b_ms, b_by = tick_bound(cfg, per_token, kv_tokens, eng.lanes)
+    return {"lanes": eng.lanes, "tick_ms": plain_ms, "fused_tick_ms": fused_ms,
+            "decision_graph_ms": decision_ms,
+            "decision_share": decision_ms / fused_ms,
+            "tokens_per_s": eng.lanes * 1e3 / plain_ms,
+            "prefill_ms_47_tokens": prefill_ms, "one_lane_tick_ms": one_lane_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by, "kv_tokens_mean": kv_tokens,
+            "weights_read_per_tick": per_token}
+
+
+def phase_serve(torch, K, seed: int) -> dict:
+    """deepseek-7b at its published widths and depth, bf16, random weights
+    from a seeded generator, served by three replicas through the port's
+    ``HeftFrontEnd.run_continuous(fused=True)`` on a fused fabric."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sched_integration import MappingFabric
+    from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.d_ff, cfg.vocab_size, cfg.param_dtype) ==
+            (30, 4096, 32, 32, 11008, 102400, "bfloat16"),
+            f"{SERVE_ARCH} is not at its published widths: {cfg}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "param_count": cfg.param_count(),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters())}
+    log(f"[serve] {cfg.name}: {out['param_count']} parameters "
+        f"({out['param_bytes']} bytes) on the card in {out['init_s']:.3f} s")
+    fleet = [ReplicaHandle(f"replica{i}(x{s})",
+                           ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                       lanes=SERVE_MAX_BATCH), speed=s)
+             for i, s in enumerate(SERVE_SPEEDS)]
+    fab = MappingFabric(len(fleet), backend="fused", device="cuda",
+                        device_counters=True)
+    require(fab.backend_effective == "fused",
+            f"serve fabric runs {fab.backend_effective}")
+    front = HeftFrontEnd(fleet, fabric=fab)
+    rng = np.random.default_rng(seed)
+    requests = serve_requests(rng, cfg.vocab_size)
+    arrivals = [min(i, 2 * SERVE_NEW_TOKENS // 3)
+                for i in range(len(requests))]
+    staged, decided, host = record_decisions(fab)
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, stats = front.run_continuous(
+        requests, arrival_ticks=arrivals, max_batch=SERVE_MAX_BATCH,
+        page_size=SERVE_PAGE_SIZE, fused=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+
+    require(stats["fused_decisions"] > 0, f"serve: no in-tick decision {stats}")
+    require(counts["fused_decision"] == len(decided) + len(host),
+            f"serve: {counts['fused_decision']} fused_decision launches for "
+            f"{len(decided)} decision ticks + {len(host)} host events")
+    require(stats["allocated"] == stats["freed"] > 0,
+            f"serve: {stats['allocated']} pages allocated, "
+            f"{stats['freed']} freed")
+    check_decisions(torch, staged, decided, fab.num_pes)
+    for i, (prompt, nt) in enumerate(requests):
+        dense = fleet[0].engine.generate(prompt[None, :], nt)[0]
+        require(np.array_equal(outs[i], dense),
+                f"serve: request {i} paged tokens differ from the dense "
+                f"generate on the card")
+    new = sum(nt for _, nt in requests)
+    log(f"[serve] run_continuous: {len(requests)} requests, {new} new tokens "
+        f"in {wall:.3f} s ({new / wall:.1f} tokens/s), {stats['ticks']} ticks "
+        f"x {len(fleet)} replicas, decisions {stats['fused_decisions']} "
+        f"in-tick / {stats['host_decisions']} host, launches {counts}, "
+        f"pages {stats['allocated']} == {stats['freed']}; every request "
+        f"bitwise the dense generate, every in-tick decision bitwise the "
+        f"plain version")
+    unwrap(fab)
+    out.update(wall_s=wall, new_tokens=new, ticks=stats["ticks"],
+               decision_ticks=len(decided), host_events=len(host),
+               launches=counts, latency_s=stats["latency_s"],
+               fused_decisions=stats["fused_decisions"],
+               host_decisions=stats["host_decisions"])
+    t = time_serve_tick(torch, fleet[0].engine, fab, rng, cfg, seed)
+    out["timing"] = t
+    log(f"[serve] decode tick at {t['lanes']} lanes: {t['tick_ms']:.6f} ms "
+        f"({t['tokens_per_s']:.1f} tokens/s), carrying a decision "
+        f"{t['fused_tick_ms']:.6f} ms; fused_decision alone "
+        f"{t['decision_graph_ms']:.6f} ms from a graph "
+        f"({100 * t['decision_share']:.3f}% of the tick); prefill of 47 "
+        f"tokens {t['prefill_ms_47_tokens']:.6f} ms; one request alone at "
+        f"one lane {t['one_lane_tick_ms']:.6f} ms a tick; tick bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']}: "
+        f"{t['weights_read_per_tick']} weights, {t['kv_tokens_mean']} cached "
+        f"tokens)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -861,6 +1095,12 @@ def main() -> int:
         launches[name] = queue_counts[name]
 
     t0 = time.perf_counter()
+    serve = phase_serve(torch, K, args.seed)
+    walls["serve"] = time.perf_counter() - t0
+    log(f"[serve] wall {walls['serve']:.3f} s")
+    launches["fused_decision"] += serve["launches"]["fused_decision"]
+
+    t0 = time.perf_counter()
     timing = phase_timing(torch, args.seed)
     walls["timing"] = time.perf_counter() - t0
     log(f"[timing] wall {walls['timing']:.3f} s")
@@ -896,6 +1136,7 @@ def main() -> int:
             "launches_runtime": runtime_counts,
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
+            "serve": serve,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
     log(card)

@@ -1,0 +1,215 @@
+"""Attention blocks: GQA with local/global windows, softcap and qk-norm.
+
+Counterpart of the GQA half of ``repro.models.attention`` (MLA comes with the
+next model slice, ROADMAP queue 1 item 7b).
+
+* Prefill attention is *chunked* with an online-softmax accumulator (the
+  flash-attention recurrence in plain PyTorch): a loop over query chunks,
+  and inside it over the causally reachable key chunks only.  Local-window
+  layers (Gemma-2) also lower-bound the key-chunk loop.
+* Decode attends one query against the whole cache, ``Smax`` slots, with a
+  scalar position or one position per row.
+
+Scores, softmax and the value sum are explicit ``einsum`` / ``softmax`` in
+float32 with the reference's ``NEG`` mask: masked slots get ``NEG`` before
+the softmax, so ``exp`` makes them exactly 0 whatever (finite) stale values
+the cache holds there.  That keeps a row's result independent of the other
+rows and of the cache beyond its position, which the paged serving path
+relies on (``serve/paging.py``).  The ``x @ W`` projections are plain
+``torch.matmul``.  Cache writes are in place: the caller's cache tensors
+hold the new token after a decode step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (apply_rope, dense_init, dtype_of, param,
+                                       rms_norm, softcap)
+
+NEG = -2.3e38  # practical -inf for f32 masking
+
+
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one cache tensor (the ``ShapeDtypeStruct`` of the
+    reference)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+class GQAttention(nn.Module):
+    """``wq`` / ``wk`` / ``wv`` / ``wo``, plus f32 ``q_norm`` / ``k_norm``
+    with qk-norm (Chameleon)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.wq = param(dense_init((D, H * hd), dt, generator, device))
+        self.wk = param(dense_init((D, KV * hd), dt, generator, device))
+        self.wv = param(dense_init((D, KV * hd), dt, generator, device))
+        self.wo = param(dense_init((H * hd, D), dt, generator, device))
+        if cfg.qk_norm:
+            self.q_norm = param(torch.zeros(hd, dtype=torch.float32,
+                                            device=device))
+            self.k_norm = param(torch.zeros(hd, dtype=torch.float32,
+                                            device=device))
+
+
+def init_gqa_params(cfg: ModelConfig, *, generator, device) -> GQAttention:
+    return GQAttention(cfg, generator=generator, device=device)
+
+
+def _qk_chunk_scores(qc_, kc_, scale, cap):
+    """qc_: (B,Q,N,G,d) scores against kc_: (B,K,N,d), in f32."""
+    s = torch.einsum("bqngd,bknd->bngqk", qc_.to(torch.float32),
+                     kc_.to(torch.float32)) * scale
+    return softcap(s, cap) if cap is not None else s
+
+
+def chunked_causal_attention(
+    q: torch.Tensor,            # (B, S, H, d)
+    k: torch.Tensor,            # (B, S, KV, d)
+    v: torch.Tensor,            # (B, S, KV, d)
+    *,
+    scale: float,
+    attn_cap: float | None,
+    window: int | None,         # None → global causal
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+) -> torch.Tensor:
+    """Online-softmax chunked attention with decoupled q/kv chunk sizes; only
+    the causally reachable key chunks (and, with a window, only those inside
+    it) are touched."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    dv = v.shape[-1]
+    G = H // KV
+    qc = min(q_chunk, S)
+    kc = min(kv_chunk, S)
+    if S % qc or S % kc:
+        raise ValueError(f"sequence length {S} must be a multiple of the "
+                         f"chunks ({qc}, {kc})")
+    dev = q.device
+    qs = q.reshape(B, S // qc, qc, KV, G, d)
+    outs = []
+    for i in range(S // qc):
+        qblk = qs[:, i]                                        # (B,qc,KV,G,d)
+        qpos = i * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, qc, dv), dtype=torch.float32, device=dev)
+        lo = 0 if window is None else max(0, (i * qc - window) // kc)
+        hi = ((i + 1) * qc + kc - 1) // kc
+        for j in range(lo, hi):
+            kblk = k[:, j * kc:(j + 1) * kc]
+            vblk = v[:, j * kc:(j + 1) * kc]
+            s = _qk_chunk_scores(qblk, kblk, scale, attn_cap)  # (B,KV,G,qc,kc)
+            kpos = j * kc + torch.arange(kc, device=dev)
+            mask = kpos[None, :] <= qpos[:, None]              # causal
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))           # (B,KV,G,qc)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bngqk,bknd->bngqd", p, vblk.to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (B,KV,G,qc,dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))                # (B,qc,KV,G,dv)
+    out = torch.cat(outs, dim=1).reshape(B, S, H, dv)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, 1, H, d)
+    k_cache: torch.Tensor,      # (B, Smax, KV, d)
+    v_cache: torch.Tensor,      # (B, Smax, KV, d)
+    pos,                        # int / () tensor shared, or (B,) one per row
+    *,
+    scale: float,
+    attn_cap: float | None,
+    window: int | None,
+) -> torch.Tensor:
+    """One-query attention against the cache.
+
+    ``pos`` is the position of the token being decoded (the slots ``<= pos``
+    are valid): one shared position for lockstep batched decode, or a
+    ``(B,)`` vector for continuous batching, where every row sits at its own
+    position.  Rows are independent either way.
+    """
+    B, _, H, d = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, d)
+    s = _qk_chunk_scores(qg, k_cache, scale, attn_cap)         # (B,KV,G,1,Smax)
+    kpos = torch.arange(Smax, device=q.device)
+    rows = torch.as_tensor(pos, device=q.device).reshape(-1)   # (1,) or (B,)
+    mask = kpos[None, :] <= rows[:, None]
+    if window is not None:
+        mask &= (rows[:, None] - kpos[None, :]) < window
+    s = torch.where(mask[:, None, None, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngqk,bknd->bqngd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, d).to(q.dtype)
+
+
+def _write_token(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write each row's (B, ...) token at its position, in place."""
+    B = cache.shape[0]
+    p = torch.as_tensor(pos, device=cache.device).reshape(-1).expand(B)
+    cache[torch.arange(B, device=cache.device), p] = new.to(cache.dtype)
+
+
+def gqa_block(
+    params: GQAttention,
+    x: torch.Tensor,              # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    window: int | None,
+    positions: torch.Tensor,      # (S,) or (B, 1)
+    cache: dict | None = None,    # {'k': (B,Smax,KV,d), 'v': ...}, in place
+    decode_pos=None,
+) -> tuple[torch.Tensor, dict | None]:
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params.wq).reshape(B, S, H, hd)
+    k = (x @ params.wk).reshape(B, S, KV, hd)
+    v = (x @ params.wv).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.norm_eps)
+        k = rms_norm(k, params.k_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    scale = hd ** -0.5
+
+    if decode_pos is not None:
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token a row and a cache")
+        _write_token(cache["k"], k[:, 0], decode_pos)
+        _write_token(cache["v"], v[:, 0], decode_pos)
+        out = decode_attention(q, cache["k"], cache["v"], decode_pos,
+                               scale=scale, attn_cap=cfg.attn_softcap,
+                               window=window)
+    else:
+        out = chunked_causal_attention(q, k, v, scale=scale,
+                                       attn_cap=cfg.attn_softcap,
+                                       window=window)
+        if cache is not None:     # prefill: fill the cache's first S slots
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    y = out.reshape(B, S, H * hd) @ params.wo
+    return y, cache
+
+
+def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    dt = dtype_of(cfg.compute_dtype)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": CacheSpec(shape, dt), "v": CacheSpec(shape, dt)}

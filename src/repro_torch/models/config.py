@@ -9,9 +9,11 @@ experts and dense residual (DeepSeek-V2 / Arctic), Mamba-1 SSM stacks
 period must divide ``num_layers - first_dense_layers``, so every stage of
 the layer stack is structurally identical.
 
-The serving cost model reads :data:`SHAPES` from here.  The parameter
-counts (``param_count`` / ``active_param_count`` in the reference) walk the
-model's parameter shapes and come with the port of ``models/model.py``.
+The serving cost model reads :data:`SHAPES` from here.  ``param_count`` /
+``active_param_count`` count the port's own parameter shapes
+(:func:`repro_torch.models.model.param_shapes`); for the configurations whose
+blocks are not ported yet (MLA, MoE, Mamba) they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -145,6 +147,18 @@ class ModelConfig:
 
     def window_kind(self, layer: int) -> str:
         return self.window_pattern[layer % len(self.window_pattern)]
+
+    # ---- analytics (roofline) ----------------------------------------------
+
+    def param_count(self) -> int:
+        """Total parameters (exact: the shapes :func:`init_params` makes)."""
+        from repro_torch.models.model import param_shapes  # lazy import
+        return sum(math.prod(s) for s in param_shapes(self).values())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token.  Every ported block is dense, so
+        this is :meth:`param_count` (MoE configs raise there)."""
+        return self.param_count()
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,582 @@
+"""Serving engine: continuous batching with a HEFT_RT front-end scheduler.
+
+Counterpart of ``repro.serve.engine`` without the mesh: mesh-backed
+replicas, ``reshard`` and ``mesh_backed_fleet`` come with ``dist/``
+(ROADMAP queue 1, item 11).  Two layers:
+
+* ``ServeEngine`` — prefill + batched token-by-token greedy decode with KV
+  caches, for one replica on one device.
+* ``HeftFrontEnd`` — maps dynamically arriving requests onto a fleet of
+  replicas with HEFT_RT (the paper's scheduler as the admission layer).
+  Replicas may share one parameter set, as the launcher's do.
+
+Public contracts:
+
+* **Dense path** (``generate``, ``start`` / ``step``) — decode against a
+  dense fixed-shape cache: the *bitwise oracle* every other path is tested
+  against.  Every decode step runs at the engine's ``lanes`` rows (a batch
+  of fewer prompts is padded), as the paged tick does; see the row
+  invariance note in ``serve/paging.py``.  ``snapshot_caches`` /
+  ``restore_caches`` are the chaos tier's kill-and-recover unit.
+* **Paged path** (``start_paged`` → ``admit`` / ``decode_tick`` /
+  ``finished_slots`` / ``retire``) — continuous batching through the
+  block-paged KV pool: admission reserves every page up front, so pool
+  exhaustion refuses admission (``admit() -> None``: callers queue, never
+  drop), and each request's tokens are bitwise ``generate``'s under any
+  admission interleaving.  ``snapshot_pages`` / ``restore_pages`` move one
+  in-flight request between engines.
+* **Front end** — ``run_batch`` (one HEFT_RT mapping event, a whole
+  ``generate`` per request) and ``run_continuous`` (per-tick admission:
+  HEFT_RT maps arrivals to sticky per-replica FIFO queues, each tick drains
+  queue heads into free paged slots).  Both return outputs in request order.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import heft_rt_numpy
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import decode_step, prefill_step
+from repro_torch.obs.metrics import Stopwatch
+
+
+def _host_scale_s(prompt_tokens, new_tokens):
+    """The abstract-fleet service-time estimate (seconds, elementwise)."""
+    return 1e-4 * prompt_tokens + 2e-3 * new_tokens
+
+
+def _span(tracer, name, **args):
+    """Tracer span, or a no-op context when no tracer is attached."""
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, **args)
+
+
+@dataclass
+class ServeEngine:
+    """Single-replica engine: batched prefill + greedy decode.
+
+    ``params`` is a :class:`repro_torch.models.model.Transformer`; the
+    engine runs on its device.  ``lanes`` is the row count of every decode
+    step.
+    """
+
+    cfg: ModelConfig
+    params: torch.nn.Module
+    max_len: int = 256
+    lanes: int = 8
+    tracer: object | None = None        # repro_torch.obs.Tracer: step spans
+
+    def __post_init__(self):
+        self._paged = None              # PagedRuntime (start_paged)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.embed.device
+
+    def _prefill(self, tokens):
+        return prefill_step(self.params, tokens, self.cfg,
+                            max_len=self.max_len)
+
+    def _decode(self, caches, tok, pos):
+        return decode_step(self.params, caches, tok, pos, self.cfg)
+
+    def snapshot_caches(self, caches) -> dict:
+        """Host snapshot of an in-flight cache tree, taken between
+        :meth:`step` calls: it outlives the replica, and
+        :meth:`restore_caches` puts the same step back on any engine."""
+        with _span(self.tracer, "engine.snapshot"):
+            return {name: c.cpu().numpy() for name, c in caches.items()}
+
+    def restore_caches(self, caches) -> dict:
+        """A :meth:`snapshot_caches` tree back on this engine's device."""
+        with _span(self.tracer, "engine.restore"):
+            return {name: torch.from_numpy(c).to(self.device)
+                    for name, c in caches.items()}
+
+    def start(self, prompts: np.ndarray):
+        """Prefill: (B, S0) prompts → (logits (B, V), caches padded to the
+        decode lanes).  With :meth:`step`, the resumable half of
+        :meth:`generate`."""
+        B, S0 = prompts.shape
+        with torch.inference_mode(), _span(self.tracer, "engine.prefill",
+                                           B=int(B), S0=int(S0)):
+            logits, caches = self._prefill(
+                torch.as_tensor(np.asarray(prompts, dtype=np.int32),
+                                device=self.device))
+            return logits, self._pad_caches(caches, max(B, self.lanes))
+
+    def _pad_caches(self, caches, rows: int) -> dict:
+        out = {}
+        for name, c in caches.items():
+            pad = torch.zeros((c.shape[0], rows, *c.shape[2:]), dtype=c.dtype,
+                              device=c.device)
+            pad[:, :c.shape[1]] = c
+            out[name] = pad
+        return out
+
+    def step(self, caches, tok, pos: int):
+        """One decode step: (caches, (B, 1) tokens, position) → (logits
+        (B, V), caches).  The caches are updated in place (pass the latest
+        ones); the step runs at the caches' lane count."""
+        tok = torch.as_tensor(np.asarray(tok), device=self.device)
+        B = tok.shape[0]
+        rows = caches["k"].shape[1]
+        with torch.inference_mode(), _span(self.tracer, "engine.decode_step",
+                                           pos=pos):
+            lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
+                                   device=self.device)
+            lane_tok[:B] = tok
+            lane_pos = torch.zeros(rows, dtype=torch.int32, device=self.device)
+            lane_pos[:B] = pos
+            logits, caches = self._decode(caches, lane_tok, lane_pos)
+            return logits[:B], caches
+
+    def generate(self, prompts: np.ndarray, new_tokens: int,
+                 greedy: bool = True, generator: torch.Generator | None = None):
+        """prompts: (B, S0) int32 → (B, S0+new_tokens) generated ids.
+
+        Greedy by default; ``greedy=False`` samples from the softmax with
+        ``generator`` (a ``torch.Generator`` on the engine's device)."""
+        if not greedy and generator is None:
+            raise ValueError("sampling needs an explicit torch.Generator")
+        B, S0 = prompts.shape
+        tr = self.tracer
+        with torch.inference_mode():
+            logits, caches = self.start(prompts)     # the engine.prefill span
+            rows = caches["k"].shape[1]
+            lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
+                                   device=self.device)
+            lane_pos = torch.zeros(rows, dtype=torch.int32, device=self.device)
+            out = []
+            for i in range(new_tokens):
+                if greedy:
+                    tok = logits.argmax(dim=-1)
+                else:
+                    tok = torch.multinomial(
+                        torch.softmax(logits.to(torch.float32), dim=-1), 1,
+                        generator=generator)[:, 0]
+                out.append(tok.to(torch.int32))
+                lane_tok[:B, 0] = out[-1]
+                lane_pos[:B] = S0 + i
+                t0 = time.perf_counter()
+                logits, caches = self._decode(caches, lane_tok, lane_pos)
+                logits = logits[:B]
+                if tr is not None:
+                    tr.complete("engine.decode_step", t0,
+                                time.perf_counter() - t0, pos=S0 + i)
+            gen = (torch.stack(out, dim=1).cpu().numpy() if out
+                   else np.zeros((B, 0), dtype=np.int32))
+        return np.concatenate([np.asarray(prompts, dtype=np.int32), gen],
+                              axis=1)
+
+    # -- continuous batching (block-paged KV pool; see serve/paging.py) -----
+
+    def start_paged(self, *, max_batch: int = 8, page_size: int = 16,
+                    num_pages: int | None = None):
+        """Switch this replica to the in-flight decode API.
+
+        Builds the page pool on the engine's device (``num_pages`` defaults
+        to full occupancy ``max_batch * max_len/page_size``; lower makes
+        admission queue).  Then drive the engine with :meth:`admit` /
+        :meth:`decode_tick` / :meth:`retire`; :meth:`generate` stays the
+        oracle.  Returns the :class:`~repro_torch.serve.paging.PagedRuntime`
+        (also kept on the engine)."""
+        from repro_torch.serve.paging import PagedRuntime
+
+        self._paged = PagedRuntime(self, max_batch, page_size,
+                                   num_pages=num_pages)
+        return self._paged
+
+    @property
+    def paged(self):
+        """The active PagedRuntime, or None before :meth:`start_paged`."""
+        return self._paged
+
+    def _require_paged(self):
+        if self._paged is None:
+            raise RuntimeError("call start_paged() before the in-flight API")
+        return self._paged
+
+    def admit(self, prompt: np.ndarray, new_tokens: int) -> int | None:
+        """Prefill + join the running batch; the slot id, or ``None`` when
+        the pool lacks a slot or pages (callers queue, never drop)."""
+        rt = self._require_paged()
+        with _span(self.tracer, "engine.admit",
+                   S0=int(np.asarray(prompt).size), new_tokens=new_tokens):
+            return rt.admit(prompt, new_tokens)
+
+    def decode_tick(self, sched=None):
+        """One decode step for every in-flight slot → {slot: new token}.
+
+        ``sched`` (optional): ``(avg, exec_times, fabric)`` for a
+        fused-backend ``MappingFabric``; the tick also makes that mapping
+        decision and returns ``(tokens, decision)`` (see
+        ``PagedRuntime.decode_tick``)."""
+        rt = self._require_paged()
+        with _span(self.tracer, "engine.decode_tick",
+                   active=len(rt.active_slots()), fused=sched is not None):
+            return rt.decode_tick(sched)
+
+    def finished_slots(self) -> list[int]:
+        """Slots whose generation completed and await :meth:`retire`."""
+        return self._require_paged().finished_slots()
+
+    def retire(self, slot: int) -> np.ndarray:
+        """Free a finished slot's pages; returns its (S0+new_tokens,) ids."""
+        return self._require_paged().retire(slot)
+
+    def free_pages(self) -> int:
+        """Pages currently available for admission."""
+        return self._require_paged().pool.free_pages
+
+    def snapshot_pages(self, slot: int) -> dict:
+        """Page-granular snapshot of ONE in-flight request; restore it with
+        :meth:`restore_pages` on any paged engine."""
+        with _span(self.tracer, "engine.snapshot_pages", slot=slot):
+            return self._require_paged().snapshot_slot(slot)
+
+    def restore_pages(self, snap: dict) -> int | None:
+        """Re-admit a :meth:`snapshot_pages` request here; decoding resumes
+        token-identically.  None when the pool is currently full."""
+        with _span(self.tracer, "engine.restore_pages"):
+            return self._require_paged().restore_slot(snap)
+
+
+@dataclass
+class ReplicaHandle:
+    """One fleet slot: an engine plus its scheduling identity.
+
+    ``speed`` scales the host-scale fallback estimate.  ``arch`` /
+    ``mesh_shape`` and the aggregate rates are the cost-model key and
+    rates a ``CostModelRegistry`` reads (``mesh_shape`` stays None until
+    replicas are mesh-backed).
+    """
+
+    name: str
+    engine: ServeEngine
+    speed: float = 1.0             # relative throughput (heterogeneous fleet)
+    avail_at: float = 0.0          # availability-time register (T_avail)
+    processed: int = 0
+    arch: str | None = None              # cost-model key
+    mesh_shape: tuple[int, ...] | None = None
+    compute_tflops: float | None = None  # aggregate effective rates
+    hbm_gbps: float | None = None
+    ici_gbps: float = 0.0
+
+
+@dataclass
+class HeftFrontEnd:
+    """HEFT_RT request→replica mapper over live engines.
+
+    Each scheduling tick, the ready queue of requests goes with per-replica
+    exec-time estimates and the T_avail registers to HEFT_RT; the
+    commitments execute on the engines.
+
+    ``fabric`` selects the mapping-event backend: ``None`` keeps the
+    ``heft_rt_numpy`` oracle; a
+    :class:`~repro_torch.sched_integration.fabric.MappingFabric` routes
+    events through its backend (identical decisions, device-resident
+    T_avail registers).  ``cost_registry`` supplies cost-model Exec_TID
+    columns for the replicas it covers.
+    """
+
+    replicas: list[ReplicaHandle]
+    fabric: object | None = None      # MappingFabric, optional
+    cost_registry: object | None = None
+    tracer: object | None = None      # repro_torch.obs.Tracer: decision spans
+    metrics: object | None = None     # repro_torch.obs.MetricsRegistry
+    unreachable: set = field(default_factory=set)   # chaos partition mask
+
+    # -- dynamic handle registry (elastic fleet) ----------------------------
+
+    def add_replica(self, handle: ReplicaHandle) -> None:
+        """Join a replica mid-run.  An attached fabric grows its PE pool in
+        place, the joiner's register seeded at its ``avail_at``."""
+        self.replicas.append(handle)
+        if self.fabric is not None:
+            self.fabric.grow(len(self.replicas), avail=handle.avail_at)
+        self._sync_mask()
+
+    def remove_replica(self, name: str) -> ReplicaHandle:
+        """Retire a replica by name (no new assignments).  The fabric
+        shrinks, keeping the survivors' registers."""
+        idx = next((i for i, r in enumerate(self.replicas) if r.name == name),
+                   None)
+        if idx is None:
+            raise KeyError(f"no replica named {name!r} in "
+                           f"{[r.name for r in self.replicas]}")
+        handle = self.replicas.pop(idx)
+        if self.fabric is not None:
+            self.fabric.shrink([i for i in range(len(self.replicas) + 1)
+                                if i != idx])
+        self.unreachable.discard(name)
+        self._sync_mask()
+        return handle
+
+    def set_unreachable(self, names) -> None:
+        """Chaos-tier partition mask: replicas in ``names`` receive no *new*
+        work (their Exec_TID columns dispatch as ``+inf``, and an attached
+        fabric's PE mask follows) while in-flight work and committed
+        ``T_avail`` registers stay.  An empty iterable clears it; names not
+        in the roster are ignored."""
+        self.unreachable = set(names)
+        self._sync_mask()
+
+    def _sync_mask(self) -> None:
+        # Fabric resizes clear the lane mask (indices change meaning), so
+        # every roster/mask change re-derives it from replica names.
+        if self.fabric is None:
+            return
+        mask = np.array([r.name in self.unreachable for r in self.replicas],
+                        dtype=bool)
+        self.fabric.set_pe_mask(mask if mask.any() else None)
+
+    def exec_estimates(self, requests: list[tuple[np.ndarray, int]]
+                       ) -> np.ndarray:
+        """(n, P) Exec_TID matrix: cost-model columns where the registry
+        covers a replica, host-scale roofline fallback elsewhere."""
+        pf = np.array([len(pr) for pr, _ in requests], dtype=np.float64)
+        dc = np.array([nt for _, nt in requests], dtype=np.float64)
+        cols = []
+        for r in self.replicas:
+            if r.name in self.unreachable:
+                cols.append(np.full(len(requests), np.inf))
+                continue
+            col = (self.cost_registry.column_s(r, pf, dc)
+                   if self.cost_registry is not None else None)
+            if col is None:
+                col = _host_scale_s(pf, dc) / r.speed
+            cols.append(col)
+        return np.stack(cols, axis=1)
+
+    def schedule(self, requests: list[tuple[np.ndarray, int]]):
+        """requests: [(prompt, new_tokens)] → list of (req_idx, replica_idx)."""
+        n, p = len(requests), len(self.replicas)
+        if self.tracer is not None:
+            self.tracer.counter("frontend.queue_depth", depth=n)
+        t0 = time.perf_counter()
+        ex = self.exec_estimates(requests)
+        avg = ex.mean(axis=1)
+        avail = np.array([r.avail_at for r in self.replicas])
+        if self.fabric is not None:
+            order, assignment, start, finish, new_avail = self.fabric.map_event(
+                avg, ex, avail, update=False)
+        else:
+            order, assignment, start, finish, new_avail = heft_rt_numpy(
+                avg, ex, avail)
+        dt = time.perf_counter() - t0
+        if self.tracer is not None:
+            self.tracer.complete("frontend.schedule", t0, dt, n=n, p=p)
+        if self.metrics is not None:
+            # Per-decision scheduler latency: one batched event amortized
+            # over its n decisions (weight n keeps counts honest).
+            self.metrics.histogram("frontend.decision_s").record(
+                dt / max(n, 1), n=max(n, 1))
+        new_avail = np.asarray(new_avail)
+        for i, r in enumerate(self.replicas):
+            r.avail_at = float(new_avail[i])
+        return [(int(order[i]), int(assignment[i])) for i in range(n)]
+
+    # -- fused-scheduler helpers ---------------------------------------------
+
+    def _fused_enabled(self, fused: bool | None) -> bool:
+        """Resolve ``run_continuous``'s ``fused`` knob: None follows the
+        attached fabric's backend; True demands a fused-backend fabric."""
+        is_fused = (self.fabric is not None
+                    and getattr(self.fabric, "backend", None) == "fused")
+        if fused is None:
+            return is_fused
+        if fused and not is_fused:
+            raise ValueError(
+                "fused=True requires a MappingFabric(backend='fused') "
+                f"front-end fabric, got "
+                f"{getattr(self.fabric, 'backend', None)!r}")
+        return bool(fused)
+
+    def _stage_event(self, requests: list[tuple[np.ndarray, int]]):
+        """(avg, exec_times) for one mapping event — the operand half of
+        :meth:`schedule`, reused by the fused tick path."""
+        ex = self.exec_estimates(requests)
+        return ex.mean(axis=1), ex
+
+    def _adopt_decision(self, n: int, decision):
+        """Turn a mapping-event 5-tuple into a plan, mirroring the fabric's
+        resident ``new_avail`` registers into the replica handles."""
+        order, assignment, _, _, new_avail = decision
+        new_avail = np.asarray(new_avail)
+        for i, r in enumerate(self.replicas):
+            r.avail_at = float(new_avail[i])
+        if self.tracer is not None:
+            self.tracer.counter("frontend.queue_depth", depth=n)
+        return [(int(order[i]), int(assignment[i])) for i in range(n)]
+
+    def run_batch(self, requests: list[tuple[np.ndarray, int]]):
+        """Schedule + execute, returning (outputs, per-replica counts)."""
+        plan = self.schedule(requests)
+        outputs: dict[int, np.ndarray] = {}
+        gen_hist = (self.metrics.histogram("engine.generate_s")
+                    if self.metrics is not None else None)
+        for req_idx, rep_idx in plan:
+            prompt, new_tokens = requests[req_idx]
+            rep = self.replicas[rep_idx]
+            with Stopwatch(gen_hist) as sw:
+                outputs[req_idx] = rep.engine.generate(prompt[None, :],
+                                                       new_tokens)
+            if self.tracer is not None:
+                self.tracer.complete("frontend.generate", sw.start_s,
+                                     sw.elapsed_s, replica=rep.name,
+                                     new_tokens=new_tokens)
+            rep.processed += 1
+        return [outputs[i] for i in range(len(requests))], \
+            {r.name: r.processed for r in self.replicas}
+
+    def run_continuous(self, requests: list[tuple[np.ndarray, int]], *,
+                       arrival_ticks: list[int] | None = None,
+                       max_batch: int = 8, page_size: int = 16,
+                       num_pages: int | None = None,
+                       fused: bool | None = None):
+        """Continuous batching: the admission tick the paper's scheduler
+        needs to pay off on dynamic arrivals.
+
+        Each tick, requests that have arrived are mapped to replicas with
+        HEFT_RT (one sticky decision per request), each replica drains its
+        mapped queue head-first into free batch slots (``admit``; a refusal
+        leaves the head queued, FIFO), then every replica runs one
+        ``decode_tick`` and retires finished slots.  Each request's tokens
+        are bitwise ``engine.generate``'s run alone, under any interleaving.
+
+        ``arrival_ticks[i]`` (default all 0) is the tick at which request
+        ``i`` becomes visible.
+
+        ``fused`` (default: on exactly when the attached fabric is
+        ``backend="fused"``): arrivals' HEFT_RT decisions run *inside* a
+        replica's decode tick against the fabric's device-resident
+        registers and ride the tick's one device-to-host copy.  Mapped
+        requests then join their queues one tick later than on the host
+        path; when no replica has an active slot to carry the decision
+        (cold start, idle fleet) it takes the host path (``map_event``)
+        against the same registers.
+
+        Returns ``(outputs, stats)``: outputs in request order; stats with
+        ``ticks``, per-replica ``processed``, the pools' cumulative
+        ``allocated`` / ``freed`` page counts (equal at drain), the
+        ``fused_decisions`` / ``host_decisions`` split, and ``latency_s``,
+        each request's host seconds from the start of its arrival tick to
+        its retire.
+        """
+        arrivals = arrival_ticks or [0] * len(requests)
+        if len(arrivals) != len(requests):
+            raise ValueError("arrival_ticks must match requests")
+        fused = self._fused_enabled(fused)
+        fused_decisions = host_decisions = 0
+        if fused:
+            # The fabric's register file is the source of truth for T_avail
+            # during the run: seeded from the handles once, then every
+            # decision updates the resident registers and mirrors them back.
+            self.fabric.reset(np.array([r.avail_at for r in self.replicas],
+                                       dtype=np.float64))
+        for r in self.replicas:
+            if r.engine.paged is None:
+                r.engine.start_paged(max_batch=max_batch,
+                                     page_size=page_size,
+                                     num_pages=num_pages)
+            pool = r.engine.paged.pool
+            for prompt, nt in requests:
+                need = pool.pages_needed(len(prompt) + nt)
+                if need > pool.num_pages:
+                    raise ValueError(
+                        f"request needs {need} pages but the pool holds "
+                        f"{pool.num_pages} — it could never be admitted")
+        order = sorted(range(len(requests)), key=lambda i: (arrivals[i], i))
+        queues: list[list[int]] = [[] for _ in self.replicas]   # req idx FIFO
+        slot_of: dict[tuple[int, int], int] = {}    # (rep, slot) → req idx
+        outputs: dict[int, np.ndarray] = {}
+        latency = [0.0] * len(requests)
+        arrived_at: dict[int, float] = {}
+        pending: list[int] = []     # fused path: arrived, not yet mapped
+        tick = 0
+        next_arrival = 0
+        while len(outputs) < len(requests):
+            tick_start = time.perf_counter()
+            # 1. HEFT_RT-map the newly arrived requests (sticky decisions).
+            batch = []
+            while (next_arrival < len(order)
+                   and arrivals[order[next_arrival]] <= tick):
+                batch.append(order[next_arrival])
+                arrived_at[order[next_arrival]] = tick_start
+                next_arrival += 1
+            carrier = None
+            if not fused:
+                if batch:
+                    plan = self.schedule([requests[i] for i in batch])
+                    for req_i, rep_i in plan:
+                        queues[rep_i].append(batch[req_i])
+            else:
+                pending.extend(batch)
+                if pending:
+                    # The decision rides the first replica that will run a
+                    # decode tick this round; with nothing in flight there
+                    # is no tick to ride — take the host path now (against
+                    # the same resident registers) so this tick admits.
+                    carrier = next(
+                        (i for i, r in enumerate(self.replicas)
+                         if r.engine.paged is not None
+                         and r.engine.paged.active_slots()), None)
+                    if carrier is None:
+                        avg, ex = self._stage_event(
+                            [requests[i] for i in pending])
+                        decision = self.fabric.map_event(avg, ex)
+                        plan = self._adopt_decision(len(pending), decision)
+                        host_decisions += len(pending)
+                        for req_i, rep_i in plan:
+                            queues[rep_i].append(pending[req_i])
+                        pending = []
+            # 2. Admission tick: drain each mapped queue into free slots.
+            for rep_i, r in enumerate(self.replicas):
+                while queues[rep_i]:
+                    idx = queues[rep_i][0]
+                    prompt, nt = requests[idx]
+                    slot = r.engine.admit(prompt, nt)
+                    if slot is None:       # exhausted: stays queued (FIFO)
+                        break
+                    queues[rep_i].pop(0)
+                    slot_of[(rep_i, slot)] = idx
+            # 3. Decode tick + retire finished slots.  On the fused path the
+            # carrier's tick also maps the pending arrivals; they reach
+            # their queues for the NEXT admission tick.
+            for rep_i, r in enumerate(self.replicas):
+                if fused and pending and rep_i == carrier:
+                    avg, ex = self._stage_event(
+                        [requests[i] for i in pending])
+                    _, decision = r.engine.decode_tick((avg, ex, self.fabric))
+                    plan = self._adopt_decision(len(pending), decision)
+                    fused_decisions += len(pending)
+                    for req_i, rep_to in plan:
+                        queues[rep_to].append(pending[req_i])
+                    pending = []
+                else:
+                    r.engine.decode_tick()
+                for slot in r.engine.finished_slots():
+                    idx = slot_of.pop((rep_i, slot))
+                    outputs[idx] = r.engine.retire(slot)
+                    latency[idx] = time.perf_counter() - arrived_at[idx]
+                    r.processed += 1
+            tick += 1
+        stats = {
+            "ticks": tick,
+            "processed": {r.name: r.processed for r in self.replicas},
+            "allocated": sum(r.engine.paged.pool.allocated
+                             for r in self.replicas),
+            "freed": sum(r.engine.paged.pool.freed for r in self.replicas),
+            "fused_decisions": fused_decisions,
+            "host_decisions": host_decisions,
+            "latency_s": latency,
+        }
+        return [outputs[i] for i in range(len(requests))], stats

@@ -1,0 +1,360 @@
+"""Block-paged KV cache pool for continuous batching.
+
+Counterpart of ``repro.serve.paging`` (design note: docs/serving.md).  The
+caches of every in-flight request live in one pool of fixed-size pages on
+the engine's device, and requests join and leave the running batch between
+decode ticks.
+
+Layout
+------
+The model's caches are one tensor per leaf name, ``{"k": (L, B, Smax, KV,
+hd), "v": ...}``.  A leaf's pool re-cuts the batch axis into ``num_pages +
+1`` pages and ``Smax`` into ``page_size``:
+
+    dense (L, B, Smax, KV, hd)  →  pool (L, num_pages + 1, page_size, KV, hd)
+
+The last page (index ``num_pages``) is the *scratch page*: padded lanes and
+unreserved page-table entries point at it, so every tick has the same shapes
+and stray writes land somewhere harmless.  A host page table (``max_batch +
+1`` rows × ``pages_per_slot`` page ids; row ``max_batch`` all scratch) maps
+each slot onto its pages.  Every page a request will need is reserved when
+it is admitted (``ceil((S0 + new_tokens) / page_size)``), so decode never
+runs out of pages: exhaustion gates admission only, and callers queue,
+never drop.
+
+Decode tick
+-----------
+A tick gathers the lanes' pages into a dense ``(L, lanes, Smax, ...)`` view,
+runs ``decode_step`` with one position per lane, scatters the one token each
+lane wrote back to its page, and takes the argmax on the device; the host
+receives the ``(lanes,)`` tokens in one copy.
+
+**Row invariance.**  Every decode step of an engine, paged or dense
+(``ServeEngine.generate``), runs at the engine's fixed lane count
+``engine.lanes``, padded with scratch lanes.  So every decode matmul has
+one shape and takes one kernel, and a row's result does not depend on how
+many requests share the tick: each request's tokens are bitwise those of
+the dense single-request ``generate``, under any admission interleaving.
+(The reference pads to power-of-two buckets instead, to bound JAX
+retraces; eager PyTorch has none, and a GEMM's rows are not bitwise
+independent of its row count, on the CPU or the card.)  Stale values beyond
+a row's position are masked before the softmax, and the pool only ever
+holds finite values.
+
+**The fused tick.**  ``decode_tick(sched=(avg, exec_times, fabric))`` with a
+``backend="fused"`` :class:`repro_torch.sched_integration.MappingFabric`
+also makes that fabric's next HEFT_RT decision: the event is staged through
+``fabric.tick_decision_inputs`` and uploaded before the decode step, the
+``fused_decision`` kernel runs on the same stream after it, in place on the
+fabric's resident ``T_avail`` register (``repro_torch.kernels.decision_hw``),
+the device counters accumulate when the fabric has them, and one
+device-to-host copy brings back ``pack_tick_outputs(tokens, decision)``;
+``fabric.commit_tick_decision`` adopts the decision lanes.
+
+Pages are also the migration and recovery unit: :meth:`PagedRuntime
+.snapshot_slot` captures one request's pages and decode state as numpy, and
+:meth:`PagedRuntime.restore_slot` re-admits it on any engine with room.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import decision_hw, pack_tick_outputs
+from repro_torch.models.model import cache_specs
+from repro_torch.obs.device import accumulate_counters
+
+# Cache leaves with a sequence axis, paged by name (MLA's ckv/kr come with
+# the MLA port).
+PAGED_LEAVES = frozenset({"k", "v"})
+
+
+@dataclass
+class _Slot:
+    """Host-side decode state of one in-flight request."""
+
+    prompt: np.ndarray            # (S0,) int32
+    new_tokens: int
+    pages: list[int]              # reserved page ids (freed at retire)
+    tokens: list[int] = field(default_factory=list)   # generated so far
+
+    @property
+    def done(self) -> bool:
+        return len(self.tokens) >= self.new_tokens
+
+    @property
+    def write_pos(self) -> int:
+        """Cache position the *next* decode tick writes this slot's current
+        token at (= S0 + steps already decoded)."""
+        return len(self.prompt) + len(self.tokens) - 1
+
+
+class PagePool:
+    """The page pools on ``device`` plus the host page table and free lists.
+
+    Allocation bookkeeping only, no model math.  ``num_pages`` defaults to
+    full occupancy (``max_batch * pages_per_slot``); set it lower to make
+    admission queue.  ``allocated`` / ``freed`` count pages cumulatively and
+    are equal whenever no slot is in flight.
+    """
+
+    def __init__(self, cfg, max_batch: int, page_size: int, max_len: int,
+                 num_pages: int | None = None, *, device):
+        if max_len % page_size != 0:
+            raise ValueError(
+                f"max_len={max_len} must be a multiple of page_size={page_size}")
+        self.cfg = cfg
+        self.max_batch = int(max_batch)
+        self.page_size = int(page_size)
+        self.max_len = int(max_len)
+        self.pages_per_slot = max_len // page_size
+        self.num_pages = int(num_pages if num_pages is not None
+                             else max_batch * self.pages_per_slot)
+        if self.num_pages < self.pages_per_slot:
+            raise ValueError(
+                f"num_pages={self.num_pages} cannot hold even one full "
+                f"sequence ({self.pages_per_slot} pages)")
+        self.scratch_page = self.num_pages          # index of the scratch page
+        self.scratch_slot = self.max_batch          # index of the scratch row
+        self.table = np.full((self.max_batch + 1, self.pages_per_slot),
+                             self.scratch_page, dtype=np.int32)
+        self.free_page_ids: deque[int] = deque(range(self.num_pages))
+        self.free_slot_ids: deque[int] = deque(range(self.max_batch))
+        self.allocated = 0
+        self.freed = 0
+        self.pools = {}
+        for name, spec in cache_specs(cfg, 1, max_len).items():
+            if name not in PAGED_LEAVES:
+                raise ValueError(f"unknown cache leaf {name!r}")
+            L, _, _, *rest = spec.shape
+            self.pools[name] = torch.zeros(
+                (L, self.num_pages + 1, self.page_size, *rest),
+                dtype=spec.dtype, device=device)
+
+    # -- allocation ---------------------------------------------------------
+
+    def pages_needed(self, total_len: int) -> int:
+        return math.ceil(total_len / self.page_size)
+
+    def can_admit(self, total_len: int) -> bool:
+        return (len(self.free_slot_ids) > 0
+                and len(self.free_page_ids) >= self.pages_needed(total_len))
+
+    def reserve(self, total_len: int) -> tuple[int, list[int]]:
+        """Claim a slot and ALL pages ``total_len`` will need.  Check
+        :meth:`can_admit` first; raises RuntimeError otherwise."""
+        n = self.pages_needed(total_len)
+        if not self.can_admit(total_len):
+            raise RuntimeError(
+                f"pool exhausted: need {n} pages / 1 slot, have "
+                f"{len(self.free_page_ids)} pages / "
+                f"{len(self.free_slot_ids)} slots")
+        slot = self.free_slot_ids.popleft()
+        pages = [self.free_page_ids.popleft() for _ in range(n)]
+        self.allocated += n
+        row = np.full(self.pages_per_slot, self.scratch_page, dtype=np.int32)
+        row[:n] = pages
+        self.table[slot] = row
+        return slot, pages
+
+    def release(self, slot: int, pages: list[int]) -> None:
+        self.table[slot] = self.scratch_page
+        self.free_page_ids.extend(pages)
+        self.free_slot_ids.append(slot)
+        self.freed += len(pages)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self.free_page_ids)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self.free_slot_ids)
+
+
+class PagedRuntime:
+    """Continuous-batching decode runtime bound to one ``ServeEngine``.
+
+    Built by :meth:`ServeEngine.start_paged`; the engine's ``admit`` /
+    ``decode_tick`` / ``retire`` / ``free_pages`` delegate here.  Holds the
+    :class:`PagePool` and the per-slot host decode state.  Decode is greedy
+    (the bitwise-oracle contract is argmax per row).  ``max_batch`` may not
+    exceed the engine's lane count.
+    """
+
+    def __init__(self, engine, max_batch: int, page_size: int,
+                 num_pages: int | None = None):
+        if max_batch > engine.lanes:
+            raise ValueError(f"max_batch={max_batch} exceeds the engine's "
+                             f"{engine.lanes} decode lanes")
+        self.engine = engine
+        self.pool = PagePool(engine.cfg, max_batch, page_size, engine.max_len,
+                             num_pages=num_pages, device=engine.device)
+        self.slots: dict[int, _Slot] = {}
+
+    # -- in-flight API ------------------------------------------------------
+
+    def admit(self, prompt: np.ndarray, new_tokens: int) -> int | None:
+        """Prefill + join the running batch.  Returns the slot id, or None
+        when the pool cannot hold the request (caller queues, never drops).
+
+        Reserves every page the request will need up front.  The first
+        generated token is the prefill logits' argmax, as the dense
+        ``generate`` computes it.
+        """
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        total = len(prompt) + int(new_tokens)
+        if total > self.pool.max_len:
+            raise ValueError(f"S0+new_tokens={total} exceeds "
+                             f"max_len={self.pool.max_len}")
+        if new_tokens < 1:
+            raise ValueError("new_tokens must be >= 1")
+        if not self.pool.can_admit(total):
+            return None
+        slot, pages = self.pool.reserve(total)
+        eng = self.engine
+        pp, ps = self.pool.pages_per_slot, self.pool.page_size
+        with torch.inference_mode():
+            logits, dense = eng._prefill(
+                torch.from_numpy(prompt[None]).to(eng.device))
+            row = torch.from_numpy(self.pool.table[slot]).to(eng.device)
+            for name, pool in self.pool.pools.items():
+                d = dense[name][:, 0]                 # (L, Smax, ...)
+                pool[:, row.long()] = d.reshape(d.shape[0], pp, ps,
+                                                *d.shape[2:])
+            first = int(logits[0].argmax())
+        self.slots[slot] = _Slot(prompt=prompt, new_tokens=int(new_tokens),
+                                 pages=pages, tokens=[first])
+        return slot
+
+    def active_slots(self) -> list[int]:
+        """Slots that still need decode ticks (not yet done)."""
+        return sorted(s for s, rec in self.slots.items() if not rec.done)
+
+    def finished_slots(self) -> list[int]:
+        """Slots whose generation is complete and awaiting :meth:`retire`."""
+        return sorted(s for s, rec in self.slots.items() if rec.done)
+
+    def _lane_inputs(self, active: list[int]) -> torch.Tensor:
+        """One host→device copy of the tick's int32 inputs: the lanes' page
+        table rows, positions and current tokens (scratch lanes: the scratch
+        row, position 0, token 0)."""
+        lanes, pp = self.engine.lanes, self.pool.pages_per_slot
+        slot_ids = active + [self.pool.scratch_slot] * (lanes - len(active))
+        host = np.zeros(lanes * (pp + 2), dtype=np.int32)
+        host[:lanes * pp] = self.pool.table[slot_ids].reshape(-1)
+        for i, s in enumerate(active):
+            rec = self.slots[s]
+            host[lanes * pp + i] = rec.write_pos
+            host[lanes * (pp + 1) + i] = rec.tokens[-1]
+        return torch.from_numpy(host).to(self.engine.device)
+
+    def _upload_event(self, a_p, ex_p) -> tuple[torch.Tensor, torch.Tensor]:
+        """One host→device copy of a staged mapping event."""
+        flat = np.concatenate([a_p.ravel(), ex_p.ravel()]).astype(np.float32)
+        dev = torch.from_numpy(flat).to(self.engine.device)
+        return dev[:a_p.size], dev[a_p.size:].view(ex_p.shape)
+
+    def decode_tick(self, sched=None):
+        """One decode step for every active slot: gather pages → dense view
+        → ``decode_step`` with per-lane positions → scatter the written
+        token → argmax on the device.  Returns {slot: new token}.
+
+        ``sched``: optional ``(avg, exec_times, fabric)``, a mapping event
+        for a fused-backend ``MappingFabric``; the tick then also makes that
+        decision (the ``fused_decision`` kernel, on the same stream, after
+        the decode step) and returns ``(tokens, decision)``, ``decision``
+        the fabric's ``map_event`` 5-tuple.  Its outputs share the tokens'
+        one device-to-host copy.
+        """
+        active = self.active_slots()
+        if not active:
+            return {} if sched is None else ({}, None)
+        eng = self.engine
+        lanes = eng.lanes
+        pp, ps = self.pool.pages_per_slot, self.pool.page_size
+        with torch.inference_mode():
+            # Uploads first: a copy from pageable host memory waits for the
+            # stream, so it must not queue behind the decode step.
+            ints = self._lane_inputs(active)
+            if sched is not None:
+                avg, exec_times, fab = sched
+                (a_p, ex_p, _, avail, mask,
+                 counters, p_valid) = fab.tick_decision_inputs(avg, exec_times)
+                a_d, ex_d = self._upload_event(a_p, ex_p)
+            table = ints[:lanes * pp].view(lanes, pp).long()
+            pos = ints[lanes * pp:lanes * (pp + 1)]
+            tok = ints[lanes * (pp + 1):].view(lanes, 1)
+            dense = {name: pool[:, table].reshape(pool.shape[0], lanes,
+                                                  pp * ps, *pool.shape[3:])
+                     for name, pool in self.pool.pools.items()}
+            logits, dense = eng._decode(dense, tok, pos)
+            rows = torch.arange(lanes, device=eng.device)
+            page = table[rows, (pos // ps).long()]
+            off = (pos % ps).long()
+            for name, pool in self.pool.pools.items():
+                pool[:, page, off] = dense[name][:, rows, pos.long()]
+            toks = logits.argmax(dim=-1).to(torch.int32)
+            decision = None
+            if sched is None:
+                nxt = toks.cpu().numpy()
+            else:
+                res = decision_hw(a_d, ex_d, avail, mask, out_avail=avail)
+                if counters is not None:
+                    valid = torch.arange(len(a_p), device=eng.device) < len(avg)
+                    accumulate_counters(counters, res.assignment,
+                                        res.new_avail, valid, p_valid)
+                # The tick's one device→host copy: tokens and decision.
+                buf = pack_tick_outputs(toks, res).cpu().numpy()
+                nxt = buf[:lanes]
+                decision = fab.commit_tick_decision(len(avg), buf[lanes:],
+                                                    res.new_avail, counters)
+        out = {}
+        for i, s in enumerate(active):
+            t = int(nxt[i])
+            self.slots[s].tokens.append(t)
+            out[s] = t
+        return out if sched is None else (out, decision)
+
+    def retire(self, slot: int) -> np.ndarray:
+        """Free the slot's pages and return the full (S0+new_tokens,) ids."""
+        rec = self.slots.pop(slot)
+        self.pool.release(slot, rec.pages)
+        return np.concatenate([rec.prompt,
+                               np.asarray(rec.tokens, dtype=np.int32)])
+
+    # -- pages as the migration / recovery unit -----------------------------
+
+    def snapshot_slot(self, slot: int) -> dict:
+        """Host snapshot of ONE request: its pages (page-shaped, not the
+        dense cache) + decode state.  O(request length), not O(pool)."""
+        rec = self.slots[slot]
+        row = torch.from_numpy(self.pool.table[slot]).long()
+        pages = {name: pool[:, row.to(pool.device)].cpu().numpy()
+                 for name, pool in self.pool.pools.items()}
+        return {"pages": pages, "prompt": rec.prompt.copy(),
+                "new_tokens": rec.new_tokens, "tokens": list(rec.tokens)}
+
+    def restore_slot(self, snap: dict) -> int | None:
+        """Re-admit a :meth:`snapshot_slot` request into THIS pool (same or
+        another engine).  Returns the new slot id, or None when the pool
+        cannot hold it now (caller queues).  Decoding resumes from the last
+        committed token, bitwise as if never moved."""
+        total = len(snap["prompt"]) + int(snap["new_tokens"])
+        if not self.pool.can_admit(total):
+            return None
+        slot, pages = self.pool.reserve(total)
+        row = torch.from_numpy(self.pool.table[slot]).long()
+        for name, pool in self.pool.pools.items():
+            pool[:, row.to(pool.device)] = torch.from_numpy(
+                snap["pages"][name]).to(pool.device)
+        self.slots[slot] = _Slot(prompt=np.asarray(snap["prompt"],
+                                                   dtype=np.int32),
+                                 new_tokens=int(snap["new_tokens"]),
+                                 pages=pages, tokens=list(snap["tokens"]))
+        return slot

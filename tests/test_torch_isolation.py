@@ -31,7 +31,7 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _modules()
-    assert len(mods) >= 36
+    assert len(mods) >= 56
     for new in ("repro_torch.kernels.oddeven_sort",
                 "repro_torch.kernels.eft_select",
                 "repro_torch.core.heft_static", "repro_torch.core.heft_energy",
@@ -40,7 +40,14 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.sched_integration.serve_scheduler",
                 "repro_torch.sched_integration.cost_model",
                 "repro_torch.sched_integration.fleet",
-                "repro_torch.sched_integration.expert_placement"):
+                "repro_torch.sched_integration.expert_placement",
+                "repro_torch.configs", "repro_torch.configs.deepseek_7b",
+                "repro_torch.models.layers", "repro_torch.models.ffn",
+                "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.models.convert", "repro_torch.serve",
+                "repro_torch.serve.paging", "repro_torch.serve.engine",
+                "repro_torch.launch.serve"):
         assert new in mods, new
     code = (
         "import importlib, json, sys\n"
@@ -98,7 +105,13 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                "sched_integration/cost_model.py",
                "sched_integration/fleet.py",
                "sched_integration/expert_placement.py"]
-    for rel in slice_1 + slice_2:
+    slice_5 = ["configs/__init__.py", "models/layers.py", "models/ffn.py",
+               "models/attention.py", "models/transformer.py",
+               "models/model.py", "serve/__init__.py", "serve/paging.py",
+               "serve/engine.py", "launch/serve.py"]
+    slice_5 += [f"configs/{p.name}" for p in
+                (REPO / "src" / "repro" / "configs").glob("*.py")]
+    for rel in slice_1 + slice_2 + slice_5:
         assert (REPO / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     for cu in ("heft_fused.cu", "fused_decision.cu", "oddeven_sort.cu",

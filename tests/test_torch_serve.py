@@ -1,0 +1,591 @@
+"""The port's serving path (``repro_torch.serve``) on the CPU, f32.
+
+* **Paged == dense, bitwise** (mirrors the unmeshed tests of
+  ``test_paged_serve.py``): any admission interleaving, pool exhaustion and
+  page reuse give each request the tokens of the port's own dense
+  ``ServeEngine.generate``; exhaustion queues and never drops; pages move a
+  request between engines.
+* **The fused tick** (mirrors ``test_fused_decision.py``): the in-tick
+  decision equals ``heft_rt_numpy`` slot for slot on f32-exact events, and
+  the tick's tokens equal a plain tick's.
+* **Against the reference**: one subprocess (``_torch_ref``) runs the JAX
+  ``HeftFrontEnd.run_continuous(fused=True)`` on parameters drawn from
+  ``np.random.default_rng``; the port, given the same numbers through
+  ``params_from_reference``, must return the same tokens and the same
+  sequence of mapping decisions, bitwise.
+* **The launcher** runs on the CPU in a subprocess and passes its oracle
+  check.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _hypothesis_compat import given, settings, st
+from _torch_ref import REPO, run_reference, unflatten
+
+from repro_torch.core import heft_rt_numpy
+from repro_torch.models import ModelConfig, init_params, params_from_reference
+from repro_torch.obs import MetricsRegistry, Tracer, validate_chrome_trace
+from repro_torch.sched_integration import (POLICIES, CostCell,
+                                           CostModelRegistry, FleetController,
+                                           FleetControllerConfig, MappingFabric,
+                                           default_fleet,
+                                           grown_replica_factory,
+                                           make_requests, pow2_bucket,
+                                           simulate_serving)
+from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+
+CFG = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=4,
+                  num_kv_heads=4, d_ff=64, vocab_size=64,
+                  param_dtype="float32", compute_dtype="float32")
+
+# Module-level lazy singletons instead of fixtures: the hypothesis fallback
+# wraps @given tests with a zero-arg signature.
+_CACHE: dict = {}
+
+
+def _params():
+    if "params" not in _CACHE:
+        _CACHE["params"] = init_params(CFG, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    return _CACHE["params"]
+
+
+def _engine(**kw):
+    return ServeEngine(CFG, _params(), max_len=32, **kw)
+
+
+def _oracle():
+    if "oracle" not in _CACHE:
+        _CACHE["oracle"] = _engine()
+    return _CACHE["oracle"]
+
+
+def _requests(n, rng, smax=32, nt_max=8):
+    out = []
+    for _ in range(n):
+        nt = int(rng.integers(1, nt_max))
+        s0 = int(rng.integers(2, smax - nt))
+        out.append((rng.integers(1, CFG.vocab_size, size=s0).astype(np.int32),
+                    nt))
+    return out
+
+
+def _drain(eng, reqs, order):
+    """Admit ``reqs`` in ``order`` (FIFO, queue on refusal) and run the
+    admission / decode / retire loop until every request retires; returns
+    the outputs and the number of refusals."""
+    pending = list(order)
+    slot_req, out, refused = {}, {}, 0
+    guard = 0
+    while len(out) < len(reqs):
+        while pending:
+            slot = eng.admit(*reqs[pending[0]])
+            if slot is None:
+                refused += 1
+                break
+            slot_req[slot] = pending.pop(0)
+        eng.decode_tick()
+        for slot in eng.finished_slots():
+            out[slot_req.pop(slot)] = eng.retire(slot)
+        guard += 1
+        assert guard < 10_000, "paged drain did not converge"
+    return out, refused
+
+
+def _event(rng, n, p, inf_frac=0.15):
+    """Small-integer event: every finish time exact in f32, with occasional
+    all-inf rows."""
+    avg = rng.integers(0, 4, n).astype(np.float64)     # duplicate keys
+    ex = rng.integers(1, 16, (n, p)).astype(np.float64)
+    ex[rng.random(n) < inf_frac] = np.inf
+    return avg, ex
+
+
+def _bits(x):
+    a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+# ---------------------------------------------------------------------------
+# paged == dense, bitwise
+# ---------------------------------------------------------------------------
+
+@settings(max_examples=10, deadline=None)
+@given(seed=st.integers(0, 10_000))
+def test_random_interleaving_bit_identical_to_dense(seed):
+    """Any admission interleaving (a tiny pool forcing queueing and page
+    reuse) reproduces the dense oracle token for token."""
+    rng = np.random.default_rng(seed)
+    reqs = _requests(5, rng)
+    oracle = [_oracle().generate(p[None], nt)[0] for p, nt in reqs]
+    eng = _engine()
+    eng.start_paged(max_batch=int(rng.integers(2, 5)), page_size=8)
+    out, _ = _drain(eng, reqs, rng.permutation(len(reqs)).tolist())
+    for i in range(len(reqs)):
+        np.testing.assert_array_equal(out[i], oracle[i])
+    pool = eng.paged.pool
+    assert pool.allocated == pool.freed
+    assert pool.free_pages == pool.num_pages
+
+
+def test_exhaustion_queues_never_drops():
+    """A pool with room for ONE sequence still serves everything, strictly
+    serialized and token-identical; admit() refuses instead of dropping."""
+    rng = np.random.default_rng(3)
+    reqs = _requests(4, rng)
+    eng = _engine()
+    eng.start_paged(max_batch=4, page_size=8, num_pages=4)   # 4 pages = 1 seq
+    out, refused = _drain(eng, reqs, range(len(reqs)))
+    assert refused > 0
+    for i, (p, nt) in enumerate(reqs):
+        np.testing.assert_array_equal(out[i],
+                                      _oracle().generate(p[None], nt)[0])
+    assert eng.paged.pool.allocated == eng.paged.pool.freed
+
+
+def test_admit_rejects_impossible_and_validates():
+    eng = _engine()
+    with pytest.raises(RuntimeError, match="start_paged"):
+        eng.admit(np.ones(4, dtype=np.int32), 2)
+    eng.start_paged(max_batch=2, page_size=8)
+    with pytest.raises(ValueError):                # S0+nt > max_len
+        eng.admit(np.ones(30, dtype=np.int32), 8)
+    with pytest.raises(ValueError):                # new_tokens < 1
+        eng.admit(np.ones(4, dtype=np.int32), 0)
+    with pytest.raises(ValueError):                # page_size ∤ max_len
+        _engine().start_paged(page_size=7)
+    with pytest.raises(ValueError, match="lanes"):  # more slots than lanes
+        _engine(lanes=2).start_paged(max_batch=3, page_size=8)
+    with pytest.raises(ValueError, match="num_pages"):
+        _engine().start_paged(max_batch=2, page_size=8, num_pages=3)
+
+
+def test_free_pages_accounting():
+    eng = _engine()
+    eng.start_paged(max_batch=2, page_size=8)      # 8 pages total
+    assert eng.free_pages() == 8
+    slot = eng.admit(np.arange(1, 10, dtype=np.int32), 4)   # 13 tok → 2 pages
+    assert eng.free_pages() == 6
+    while not eng.finished_slots():
+        eng.decode_tick()
+    eng.retire(slot)
+    assert eng.free_pages() == 8
+    assert eng.paged.pool.allocated == eng.paged.pool.freed == 2
+    assert eng.decode_tick() == {}                 # nothing in flight
+
+
+def test_snapshot_restore_moves_request_between_engines():
+    """Kill-and-recover at page granularity: a mid-decode snapshot on
+    engine A restores on engine B and finishes token-identically."""
+    rng = np.random.default_rng(7)
+    (p, nt), = _requests(1, rng, nt_max=8)
+    nt = max(nt, 4)
+    oracle = _oracle().generate(p[None], nt)[0]
+    a = _engine()
+    a.start_paged(max_batch=2, page_size=8)
+    slot = a.admit(p, nt)
+    a.decode_tick()
+    snap = a.snapshot_pages(slot)
+    b = _engine()
+    b.start_paged(max_batch=2, page_size=8)
+    b.admit(np.arange(1, 20, dtype=np.int32), 4)   # occupy other pages first
+    slot_b = b.restore_pages(snap)
+    assert slot_b is not None
+    while slot_b not in b.finished_slots():
+        b.decode_tick()
+    np.testing.assert_array_equal(b.retire(slot_b), oracle)
+
+
+def test_dense_caches_snapshot_restore_and_step_resume():
+    """start/step resumed on another engine from a host snapshot equals an
+    uninterrupted generate (the chaos tier's recovery unit)."""
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, CFG.vocab_size, 12).astype(np.int32)
+    want = _oracle().generate(prompt[None], 8)
+    eng = _engine()
+    logits, caches = eng.start(prompt[None])
+    toks = []
+    for i in range(4):
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        toks.append(tok.numpy())
+        logits, caches = eng.step(caches, tok[:, None], 12 + i)
+    snap = eng.snapshot_caches(caches)
+    saved_logits = logits.numpy().copy()
+    other = _engine()
+    caches = other.restore_caches(snap)
+    logits = torch.from_numpy(saved_logits)
+    for i in range(4, 8):
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        toks.append(tok.numpy())
+        logits, caches = other.step(caches, tok[:, None], 12 + i)
+    np.testing.assert_array_equal(np.stack(toks, axis=1), want[:, 12:])
+
+
+def test_generate_batches_and_samples_with_an_explicit_generator():
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, CFG.vocab_size, (3, 6)).astype(np.int32)
+    batch = _oracle().generate(prompts, 5)
+    for b in range(3):
+        np.testing.assert_array_equal(
+            batch[b], _oracle().generate(prompts[b:b + 1], 5)[0])
+    wide = _engine(lanes=2).generate(prompts, 5)   # more prompts than lanes
+    assert wide.shape == (3, 11)
+    with pytest.raises(ValueError, match="Generator"):
+        _oracle().generate(prompts, 3, greedy=False)
+    draws = [_oracle().generate(prompts, 5, greedy=False,
+                                generator=torch.Generator().manual_seed(9))
+             for _ in range(2)]
+    np.testing.assert_array_equal(draws[0], draws[1])
+    np.testing.assert_array_equal(draws[0][:, :6], prompts)
+
+
+# ---------------------------------------------------------------------------
+# the fused tick
+# ---------------------------------------------------------------------------
+
+def test_decode_tick_sched_contract_and_counters():
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(1, CFG.vocab_size, 6).astype(np.int32)
+    fab = MappingFabric(4, backend="fused", device="cpu",
+                        device_counters=True)
+    eng, plain = _engine(), _engine()
+    for e in (eng, plain):
+        e.start_paged(max_batch=2, page_size=8)
+        assert e.admit(prompt, 8) is not None
+    mirror = np.zeros(4)
+    host = np.zeros(4)
+    for _ in range(6):
+        n = int(rng.integers(2, 10))
+        avg, ex = _event(rng, n, 4)
+        out, decision = eng.decode_tick((avg, ex, fab))
+        assert out == plain.decode_tick()          # identical decode
+        want = heft_rt_numpy(avg, ex, mirror)
+        mirror = want[4]
+        for got, w in zip(decision, want):
+            np.testing.assert_array_equal(
+                np.asarray(got, dtype=np.float64), w)
+        host[0] += 1
+        host[1] += int((want[1] >= 0).sum())
+        host[2] += n
+        host[3] += float(np.float32(mirror.max()) - np.float32(mirror.min()))
+    np.testing.assert_array_equal(fab.avail, mirror)
+    ctr = fab.drain_counters()
+    assert [ctr[k] for k in ("events", "decisions", "occupancy")] == \
+        list(host[:3])
+    assert ctr["t_avail_spread"] == pytest.approx(host[3])
+    idle = _engine()
+    idle.start_paged(max_batch=2, page_size=8)
+    assert idle.decode_tick((np.zeros(2), np.ones((2, 4)), fab)) == ({}, None)
+
+
+def test_fused_tick_requires_a_fused_fabric():
+    eng = _engine()
+    eng.start_paged(max_batch=2, page_size=8)
+    eng.admit(np.arange(1, 6, dtype=np.int32), 3)
+    fab = MappingFabric(2, backend="numpy", device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        eng.decode_tick((np.zeros(2), np.ones((2, 2)), fab))
+    front = HeftFrontEnd([ReplicaHandle("r0", _engine())])
+    with pytest.raises(ValueError, match="fused"):
+        front.run_continuous([(np.arange(1, 5, dtype=np.int32), 2)],
+                             fused=True, max_batch=2, page_size=8,
+                             num_pages=8)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_continuous_matches_oracle_and_balances(fused):
+    rng = np.random.default_rng(11)
+    reqs = _requests(6, rng)
+    fleet = [ReplicaHandle(f"replica{i}", _engine(), speed=s)
+             for i, s in enumerate([1.0, 0.7])]
+    fab = (MappingFabric(2, backend="fused", device="cpu",
+                         device_counters=True) if fused else None)
+    front = HeftFrontEnd(fleet, fabric=fab)
+    outs, stats = front.run_continuous(
+        reqs, arrival_ticks=[0, 0, 1, 2, 2, 5],
+        max_batch=2, page_size=8, num_pages=8)
+    for i, (p, nt) in enumerate(reqs):
+        np.testing.assert_array_equal(outs[i],
+                                      _oracle().generate(p[None], nt)[0])
+    assert stats["allocated"] == stats["freed"]
+    assert sum(stats["processed"].values()) == len(reqs)
+    assert stats["fused_decisions"] + stats["host_decisions"] == \
+        (len(reqs) if fused else 0)
+    assert len(stats["latency_s"]) == len(reqs)
+    assert all(t > 0 for t in stats["latency_s"])
+    if fused:
+        assert stats["fused_decisions"] > 0
+        assert fab.drain_counters()["decisions"] == len(reqs)
+    with pytest.raises(ValueError, match="arrival_ticks"):
+        front.run_continuous(reqs, arrival_ticks=[0])
+    with pytest.raises(ValueError, match="never be admitted"):
+        HeftFrontEnd([ReplicaHandle("r", _engine())]).run_continuous(
+            [(np.ones(30, np.int32), 6)], max_batch=1, page_size=8,
+            num_pages=4)
+
+
+def test_run_batch_schedules_and_traces():
+    rng = np.random.default_rng(2)
+    reqs = _requests(4, rng)
+    tracer, metrics = Tracer(), MetricsRegistry()
+    fleet = [ReplicaHandle(f"r{i}", _engine(tracer=tracer), speed=s)
+             for i, s in enumerate([1.0, 2.0])]
+    front = HeftFrontEnd(fleet, tracer=tracer, metrics=metrics)
+    outs, counts = front.run_batch(reqs)
+    for (p, nt), o in zip(reqs, outs):
+        np.testing.assert_array_equal(o[0], _oracle().generate(p[None], nt)[0])
+    assert sum(counts.values()) == len(reqs)
+    names = {e.name for e in tracer.events()}
+    assert {"frontend.schedule", "frontend.generate", "engine.prefill",
+            "engine.decode_step", "frontend.queue_depth"} <= names
+    assert metrics.histogram("frontend.decision_s").count == len(reqs)
+    # the host path decides as the heft_rt_numpy oracle does
+    ex = front.exec_estimates(reqs)
+    for r in fleet:
+        r.avail_at = 0.0
+    want = heft_rt_numpy(ex.mean(axis=1), ex, np.zeros(2))
+    assert front.schedule(reqs) == [(int(o), int(a))
+                                    for o, a in zip(want[0], want[1])]
+
+
+class _Eng:           # estimate-only stand-in; never executed
+    pass
+
+
+def test_front_end_set_unreachable_masks_and_clears():
+    front = HeftFrontEnd([ReplicaHandle("a", _Eng()),
+                          ReplicaHandle("b", _Eng(), speed=2.0)],
+                         fabric=MappingFabric(2, backend="numpy",
+                                              device="cpu"))
+    reqs = [(np.zeros(10, np.int32), 4), (np.zeros(6, np.int32), 2)]
+    front.set_unreachable(["a", "ghost"])      # unknown names are ignored
+    assert np.isinf(front.exec_estimates(reqs)[:, 0]).all()
+    assert all(p == 1 for _, p in front.schedule(reqs))
+    front.set_unreachable([])
+    assert front.fabric._pe_mask is None
+    assert np.isfinite(front.exec_estimates(reqs)).all()
+    front.set_unreachable(["b"])
+    front.remove_replica("b")
+    assert front.unreachable == set() and front.fabric._pe_mask is None
+
+
+def test_front_end_dynamic_registry_resizes_fabric():
+    front = HeftFrontEnd([ReplicaHandle("a", _Eng()),
+                          ReplicaHandle("b", _Eng(), speed=2.0)],
+                         fabric=MappingFabric(2, backend="numpy",
+                                              device="cpu"))
+    reqs = [(np.zeros(10, np.int32), 4), (np.zeros(6, np.int32), 2)]
+    front.schedule(reqs)
+    front.add_replica(ReplicaHandle("c", _Eng(), speed=4.0, avail_at=0.125))
+    assert front.fabric.num_pes == 3
+    assert front.fabric.avail[2] == 0.125
+    assert all(0 <= p < 3 for _, p in front.schedule(reqs))
+    removed = front.remove_replica("a")
+    assert removed.name == "a" and front.fabric.num_pes == 2
+    assert all(0 <= p < 2 for _, p in front.schedule(reqs))
+    with pytest.raises(KeyError):
+        front.remove_replica("a")
+
+
+def test_front_end_uses_registry_columns():
+    """Covered replicas get cost-model Exec_TID columns, the others the
+    host-scale fallback (test_serve_sharded.py)."""
+    fast = ReplicaHandle("fast", _Eng(), speed=4.0, arch="t",
+                         mesh_shape=(2, 2), compute_tflops=4.0, hbm_gbps=4.0)
+    slow = ReplicaHandle("slow", _Eng(), speed=1.0)
+    reg = CostModelRegistry([
+        CostCell("t", "prefill", (2, 2), tokens_per_step=8,
+                 flops_per_device=16e12 / 4, bytes_per_device=0.0),
+        CostCell("t", "decode", (2, 2), tokens_per_step=1,
+                 flops_per_device=0.0, bytes_per_device=8e9 / 4),
+    ])
+    front = HeftFrontEnd([fast, slow], cost_registry=reg)
+    reqs = [(np.zeros(10, np.int32), 4), (np.zeros(20, np.int32), 2)]
+    ex = front.exec_estimates(reqs)
+    want_fast = np.array([10 * (16e12 / 8) / 4e12 + 4 * 8e9 / 4e9,
+                          20 * (16e12 / 8) / 4e12 + 2 * 8e9 / 4e9])
+    np.testing.assert_allclose(ex[:, 0], want_fast, rtol=1e-12)
+    want_slow = np.array([1e-4 * 10 + 2e-3 * 4, 1e-4 * 20 + 2e-3 * 2])
+    np.testing.assert_allclose(ex[:, 1], want_slow, rtol=1e-12)
+    plan = front.schedule(reqs)
+    assert sorted(i for i, _ in plan) == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# the simulator twin's slots (test_paged_serve.py)
+# ---------------------------------------------------------------------------
+
+def test_slots1_bit_identical_and_slots_help():
+    def load():
+        return make_requests(30.0, 6.0, seed=0)
+
+    base = simulate_serving(default_fleet(), load(),
+                            POLICIES["heft_rt"](device="cpu"),
+                            active_params=7e9)
+    again = simulate_serving([dataclasses.replace(r, slots=1)
+                              for r in default_fleet()], load(),
+                             POLICIES["heft_rt"](device="cpu"),
+                             active_params=7e9)
+    np.testing.assert_array_equal(base.finish_times, again.finish_times)
+    np.testing.assert_array_equal(base.final_avail, again.final_avail)
+    assert base.p99_latency == again.p99_latency
+    multi = simulate_serving([dataclasses.replace(r, slots=4)
+                              for r in default_fleet()], load(),
+                             POLICIES["heft_rt"](device="cpu"),
+                             active_params=7e9)
+    assert multi.p99_latency <= base.p99_latency + 1e-12
+
+
+def test_multislot_straggler_remap_guard():
+    fleet = [dataclasses.replace(r, slots=2) for r in default_fleet()]
+    ctl = FleetController(
+        FleetControllerConfig(straggler_factor=1.01,
+                              straggler_min_backlog_s=0.0),
+        grown_replica_factory("g", (2, 2)))
+    with pytest.raises(ValueError, match="multi-slot"):
+        simulate_serving(fleet, make_requests(400.0, 4.0, seed=0),
+                         POLICIES["heft_rt"](device="cpu"),
+                         active_params=7e9, controller=ctl)
+
+
+def test_pow2_bucket():
+    assert [pow2_bucket(n) for n in (1, 2, 3, 5, 8, 9)] == [1, 2, 4, 8, 8, 16]
+    assert pow2_bucket(1, min_bucket=8) == 8
+
+
+# ---------------------------------------------------------------------------
+# against the JAX reference's front end
+# ---------------------------------------------------------------------------
+
+REF_SCRIPT = '''
+import jax, jax.numpy as jnp
+from repro.models.config import ModelConfig
+from repro.models.model import param_shapes
+from repro.sched_integration.fabric import MappingFabric
+from repro.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+
+CFG = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=4,
+                  num_kv_heads=4, d_ff=64, vocab_size=64,
+                  param_dtype="float32", compute_dtype="float32")
+rng = np.random.default_rng(21)
+params_np = rand_tree(param_shapes(CFG), rng)
+out = flat_tree(params_np, "params", {})
+params = jax.tree.map(jnp.asarray, params_np)
+reqs = []
+for i in range(6):
+    nt = int(rng.integers(1, 8))
+    s0 = int(rng.integers(2, 32 - nt))
+    p = rng.integers(1, 64, size=s0).astype(np.int32)
+    reqs.append((p, nt))
+    out[f"req|{i}"] = p
+decisions = []
+orig = HeftFrontEnd._adopt_decision
+def record(self, n, decision):
+    decisions.append(decision)
+    return orig(self, n, decision)
+HeftFrontEnd._adopt_decision = record
+fleet = [ReplicaHandle(f"replica{i}", ServeEngine(CFG, params, max_len=32),
+                       speed=s) for i, s in enumerate([1.0, 0.7, 1.4])]
+front = HeftFrontEnd(fleet, fabric=MappingFabric(3, backend="fused",
+                                                 device_counters=True))
+outs, stats = front.run_continuous(reqs, arrival_ticks=ARRIVALS,
+                                   max_batch=2, page_size=8, num_pages=8)
+for i, o in enumerate(outs):
+    out[f"out|{i}"] = o
+for k, d in enumerate(decisions):
+    for name, x in zip(("order", "assignment", "start", "finish",
+                        "new_avail"), d):
+        out[f"dec|{k}|{name}"] = np.asarray(x)
+for k in ("ticks", "fused_decisions", "host_decisions", "allocated",
+          "freed"):
+    out[f"stat|{k}"] = np.asarray(stats[k])
+out["stat|processed"] = np.asarray([stats["processed"][r.name]
+                                    for r in fleet])
+ctr = front.fabric.drain_counters()
+out["counters"] = np.asarray([ctr[k] for k in sorted(ctr)], np.float64)
+np.savez(OUT, **out)
+'''
+ARRIVALS = [0, 0, 1, 2, 2, 4]
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return run_reference(f"ARRIVALS = {ARRIVALS!r}\n" + REF_SCRIPT,
+                         tmp_path_factory.mktemp("ref") / "serve.npz")
+
+
+def test_fused_run_continuous_equals_the_reference_front_end(ref):
+    params = params_from_reference(CFG, unflatten(ref, "params"),
+                                   device="cpu")
+    reqs = [(ref[f"req|{i}"], int(ref[f"out|{i}"].size - ref[f"req|{i}"].size))
+            for i in range(len(ARRIVALS))]
+    fleet = [ReplicaHandle(f"replica{i}",
+                           ServeEngine(CFG, params, max_len=32), speed=s)
+             for i, s in enumerate([1.0, 0.7, 1.4])]
+    fab = MappingFabric(3, backend="fused", device="cpu",
+                        device_counters=True)
+    front = HeftFrontEnd(fleet, fabric=fab)
+    decisions = []
+    adopt = front._adopt_decision
+
+    def record(n, decision):
+        decisions.append(decision)
+        return adopt(n, decision)
+
+    front._adopt_decision = record
+    outs, stats = front.run_continuous(reqs, arrival_ticks=ARRIVALS,
+                                       max_batch=2, page_size=8, num_pages=8)
+    for i, o in enumerate(outs):
+        np.testing.assert_array_equal(o, ref[f"out|{i}"])
+        np.testing.assert_array_equal(
+            o, fleet[0].engine.generate(reqs[i][0][None], reqs[i][1])[0])
+    n_ref = sum(1 for k in ref if k.startswith("dec|") and k.endswith("|order"))
+    assert len(decisions) == n_ref > 0
+    for k, d in enumerate(decisions):
+        for name, x in zip(("order", "assignment", "start", "finish",
+                            "new_avail"), d):
+            np.testing.assert_array_equal(_bits(x), _bits(ref[f"dec|{k}|{name}"]),
+                                          err_msg=f"decision {k} {name}")
+    for k in ("ticks", "fused_decisions", "host_decisions", "allocated",
+              "freed"):
+        assert stats[k] == int(ref[f"stat|{k}"]), k
+    assert [stats["processed"][r.name] for r in fleet] == \
+        ref["stat|processed"].tolist()
+    ctr = fab.drain_counters()
+    np.testing.assert_array_equal(
+        np.asarray([ctr[k] for k in sorted(ctr)], np.float64), ref["counters"])
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def test_launcher_runs_paged_fused_on_the_cpu_and_checks_the_oracle(tmp_path):
+    trace = tmp_path / "trace.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--paged", "--fused-scheduler", "--requests", "4", "--new-tokens",
+         "4", "--trace", str(trace)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout + proc.stderr
+    assert "request 0 verified token-identical to the dense oracle" in out
+    assert "fused in-tick" in out
+    doc = json.loads(trace.read_text())
+    validate_chrome_trace(doc)
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"engine.decode_tick", "engine.admit"} <= names
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--fused-scheduler"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode != 0 and "requires --paged" in proc.stderr
