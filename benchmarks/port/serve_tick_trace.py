@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where a paged decode tick's time goes on the card, at full width.
 
-    python3 benchmarks/port/serve_tick_trace.py [--out FILE] [--seed N]
+    python3 benchmarks/port/serve_tick_trace.py [--arch A] [--out FILE] [--seed N]
 
-Builds deepseek-7b at its published widths and depth (bf16, random weights
-from a seeded generator, as ``chip_smoke.py``'s serve phase does), one
-``ServeEngine`` with four decode lanes and a paged pool, and admits four
-requests of 32 prompt tokens.  Then it times ten plain decode ticks with
+Builds ``--arch`` (default deepseek-7b; falcon-mamba-7b is the other one
+``chip_smoke.py`` serves whole) at its published widths and depth (bf16,
+random weights from a seeded generator, as ``chip_smoke.py``'s serve phases
+do), one ``ServeEngine`` with four decode lanes and a paged pool, and admits
+four requests of 32 prompt tokens.  Then it times ten plain decode ticks with
 CUDA events and traces five more under ``torch.profiler`` (CPU and CUDA
 activities).  Prints the tick's wall time, the device's busy time and idle
 share per tick, the device kernels and host ops per tick, the device time
@@ -26,7 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
-ARCH, LANES, PROMPT, NEW_TOKENS = "deepseek_7b", 4, 32, 64
+LANES, PROMPT, NEW_TOKENS = 4, 32, 64
 TIMED, TRACED = 10, 5
 
 
@@ -47,7 +48,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the summary to FILE (JSON)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="deepseek_7b")
     args = ap.parse_args()
+    arch = args.arch
 
     import torch
     if not torch.cuda.is_available():
@@ -64,7 +67,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     params = init_params(
         cfg, torch.Generator(device="cuda").manual_seed(args.seed),
         device="cuda")
@@ -122,7 +125,7 @@ def main() -> int:
         "host_aten_ops": len(top_level) / TRACED,
     }
     print(f"[card] {card} | torch {torch.__version__}")
-    print(f"[tick] {ARCH} {cfg.num_layers} layers, {LANES} lanes: "
+    print(f"[tick] {arch} {cfg.num_layers} layers, {LANES} lanes: "
           f"{tick_ms:.6f} ms a plain tick (CUDA events, {TIMED} ticks); "
           f"traced {per_tick['wall_ms']:.6f} ms, device busy "
           f"{per_tick['device_busy_ms']:.6f} ms (idle share "
@@ -134,7 +137,7 @@ def main() -> int:
     for name, us in host:
         print(f"[host]   {us / TRACED / 1e3:10.4f} ms/tick  {name[:100]}")
     summary = {
-        "card": card, "arch": ARCH, "lanes": LANES, "tick_ms": tick_ms,
+        "card": card, "arch": arch, "lanes": LANES, "tick_ms": tick_ms,
         "traced_wall_s": traced_wall, "device_busy_s": busy,
         "idle_share": 1 - busy / traced_wall, "per_tick": per_tick,
         "device_ms_per_tick_by_name": {k: v / TRACED / 1e3

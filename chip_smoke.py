@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out FILE] [--seed N]
 
 Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-one process per source, all at once), then runs six phases and fails on the
-first disagreement:
+one process per source, all at once), then runs these phases and fails on
+the first disagreement:
 
 * kernels — each kernel against its plain PyTorch version, run on CPU copies
   of the same inputs, bitwise: B = 256 events, D in {5, 1330, 2048}, P in
@@ -56,9 +56,24 @@ first disagreement:
   ``fused_decision`` launches the decision ticks plus the host events, and
   the pages allocated those freed.  Then the decode tick (plain and
   carrying a decision), the decision kernel, a prefill and a one-lane
-  tick are timed beside the tick's bytes bound.
+  tick are timed beside the tick's bytes bound;
+* mamba — falcon-mamba-7b at its published widths and depth (64 Mamba
+  layers, d_model 4096, d_inner 8192, d_state 16, vocab 65024, bf16) the
+  same way, on prompts of 8, 12, 16, 32 and 48 tokens (a Mamba prefill
+  takes at most its scan chunk of 16 or a multiple of it), with the state
+  slots allocated == freed as well; the tick and a 48-token prefill are
+  timed beside the tick's bound (the weights once, each lane's conv and
+  ssm state read and written once);
+* jamba-v0.1-52b with one period of its pattern (8 of 32 layers: 7 Mamba,
+  1 attention, MoE on every second) and deepseek-v2-236b with its dense
+  first layer and one MLA + MoE layer (2 of 60) at their published widths:
+  three requests each through the same serve run, paged == dense bitwise
+  at four lanes.  Each model is freed before the next is built (the whole
+  of jamba, ~103 GB, or deepseek-v2, ~471 GB, does not fit the card's 80
+  GB).  arctic-480b is not run here: one of its layers alone holds 13.4 B
+  expert parameters (26.8 GB); the CPU tests cover it.
 
-The fabric, runtime, queue-event, serving and serve runs are the main
+The fabric, runtime, queue-event, serving and the serve runs are the main
 path: the kernels' launch counters are zeroed just before each and read
 just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
@@ -803,12 +818,50 @@ SERVE_SPEEDS = (1.0, 0.7, 1.4)      # the launcher's three replicas
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 16
 SERVE_MAX_BATCH, SERVE_PAGE_SIZE, SERVE_MAX_LEN = 4, 16, 128
 BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
+DEVICE = "cuda"
+# Prompt lengths a Mamba prefill accepts at full width (at most the scan
+# chunk of 16, or a multiple of it), used in turn.
+MAMBA_PROMPTS = (8, 12, 16, 32, 48)
+# Published widths of the served configurations, checked before a run:
+# (layers, d_model, heads, kv heads, d_ff, vocab, param dtype, and the
+# Mamba layers' d_inner, d_state and scan chunk).
+PUBLISHED = {
+    "deepseek_7b": (30, 4096, 32, 32, 11008, 102400, "bfloat16", None),
+    "falcon_mamba_7b": (64, 4096, 1, 1, 0, 65024, "bfloat16", (8192, 16, 16)),
+    "jamba_v0_1_52b": (32, 4096, 32, 8, 14336, 65536, "bfloat16",
+                       (8192, 16, 16)),
+    "deepseek_v2_236b": (60, 5120, 128, 128, 12288, 102400, "bfloat16",
+                         None),
+}
+# Layers kept where the whole model does not fit the card, with why:
+# jamba one period of its 1:7 pattern (7 Mamba + 1 attention layer, MoE on
+# every second), deepseek-v2 its dense first layer and one MLA + MoE layer.
+CUT_LAYERS = {"jamba_v0_1_52b": 8, "deepseek_v2_236b": 2}
+CUT_REQUESTS = 3
 
 
-def serve_requests(rng, vocab: int):
-    """The launcher's recipe: prompts of 8-48 tokens, 16 new tokens each."""
-    return [(rng.integers(0, vocab, rng.integers(8, 48)).astype(np.int32),
-             SERVE_NEW_TOKENS) for _ in range(SERVE_REQUESTS)]
+def serve_requests(rng, vocab: int, lengths=None, n: int = SERVE_REQUESTS):
+    """The launcher's recipe: prompts of 8-47 tokens (or ``lengths`` in
+    turn), 16 new tokens each."""
+    return [(rng.integers(0, vocab, lengths[i % len(lengths)] if lengths
+                          else rng.integers(8, 48)).astype(np.int32),
+             SERVE_NEW_TOKENS) for i in range(n)]
+
+
+def check_widths(cfg, arch: str) -> None:
+    got = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.param_dtype,
+           cfg.ssm and (cfg.ssm.d_inner, cfg.ssm.d_state, cfg.ssm.chunk))
+    require(got == PUBLISHED[arch],
+            f"{arch} is not at its published widths: {cfg}")
+
+
+def free_card(torch) -> None:
+    """Let the last model's memory go before the next one is built."""
+    import gc
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
 def record_decisions(fab):
@@ -869,21 +922,33 @@ def check_decisions(torch, staged, decided, num_pes: int) -> None:
 def tick_bound(cfg, params_per_token: int, kv_tokens: int,
                lanes: int) -> tuple[float, str]:
     """Least time for one decode tick: the weights read once (the embedding
-    table only at the lanes' rows), each lane's cached K and V up to its
-    position read once and its new token's written once, the int32 tokens
-    in and out; 2 operations a weight a lane, in bf16."""
-    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
-    nbytes = 2 * params_per_token + kv * (kv_tokens + lanes) + 8 * lanes
+    table only at the lanes' rows), each lane's cached tokens (K and V, or
+    MLA's latent) up to its position read once and its new token's written
+    once, each lane's Mamba state (conv and ssm rows) read and written
+    once, the int32 tokens in and out; 2 operations a weight a lane, in
+    bf16."""
+    from repro_torch.models import cache_specs
+    from repro_torch.serve.paging import STATE_LEAVES
+    per_token = per_lane = 0
+    for name, s in cache_specs(cfg, 1, 1).items():
+        n = int(np.prod(s.shape)) * s.dtype.itemsize
+        if name in STATE_LEAVES:
+            per_lane += 2 * n
+        else:
+            per_token += n
+    nbytes = (2 * params_per_token + per_token * (kv_tokens + lanes)
+              + per_lane * lanes + 8 * lanes)
     ops = 2.0 * params_per_token * lanes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def time_serve_tick(torch, eng, fab, rng, cfg, seed: int) -> dict:
+def time_serve_tick(torch, eng, fab, rng, cfg, seed: int,
+                    prefill_len: int) -> dict:
     """Decode ticks at the full lane width, plain and carrying a decision,
-    the decision kernel alone at the tick's event shape, and a prefill,
-    each timed with CUDA events."""
+    the decision kernel alone at the tick's event shape, and a prefill of
+    ``prefill_len`` tokens, each timed with CUDA events."""
     from repro_torch.kernels import decision_hw
     rt = eng.paged
     for _ in range(eng.lanes):
@@ -901,11 +966,13 @@ def time_serve_tick(torch, eng, fab, rng, cfg, seed: int) -> dict:
     fused_ms = cuda_time_ms(torch, lambda: eng.decode_tick((avg, ex, fab)),
                             iters=iters, warmup=0)
     a_p, ex_p, _, avail, mask, _, _ = fab.tick_decision_inputs(avg, ex)
-    a_d, ex_d = torch.from_numpy(a_p).cuda(), torch.from_numpy(ex_p).cuda()
+    a_d = torch.from_numpy(a_p).to(DEVICE)
+    ex_d = torch.from_numpy(ex_p).to(DEVICE)
     regs = avail.clone()
     decision_ms = graph_time_ms(
         torch, lambda: decision_hw(a_d, ex_d, regs, mask, out_avail=regs))
-    prompt = rng.integers(0, cfg.vocab_size, (1, 47)).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (1, prefill_len)).astype(np.int32)
     prefill_ms = cuda_time_ms(torch, lambda: eng.start(prompt), iters=5)
     # what the fixed lane width costs a lone request: one lane, unpadded
     one = type(eng)(cfg, eng.params, max_len=eng.max_len, lanes=1)
@@ -919,47 +986,66 @@ def time_serve_tick(torch, eng, fab, rng, cfg, seed: int) -> dict:
             "decision_graph_ms": decision_ms,
             "decision_share": decision_ms / fused_ms,
             "tokens_per_s": eng.lanes * 1e3 / plain_ms,
-            "prefill_ms_47_tokens": prefill_ms, "one_lane_tick_ms": one_lane_ms,
-            "bound_ms": b_ms,
+            "prefill_tokens": prefill_len, "prefill_ms": prefill_ms,
+            "one_lane_tick_ms": one_lane_ms, "bound_ms": b_ms,
             "bound_by": b_by, "kv_tokens_mean": kv_tokens,
             "weights_read_per_tick": per_token}
 
 
-def phase_serve(torch, K, seed: int) -> dict:
-    """deepseek-7b at its published widths and depth, bf16, random weights
-    from a seeded generator, served by three replicas through the port's
-    ``HeftFrontEnd.run_continuous(fused=True)`` on a fused fabric."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-    from repro_torch.sched_integration import MappingFabric
-    from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+def log_tick(tag: str, t: dict) -> None:
+    log(f"[{tag}] decode tick at {t['lanes']} lanes: {t['tick_ms']:.6f} ms "
+        f"({t['tokens_per_s']:.1f} tokens/s), carrying a decision "
+        f"{t['fused_tick_ms']:.6f} ms; fused_decision alone "
+        f"{t['decision_graph_ms']:.6f} ms from a graph "
+        f"({100 * t['decision_share']:.3f}% of the tick); prefill of "
+        f"{t['prefill_tokens']} tokens {t['prefill_ms']:.6f} ms; one request "
+        f"alone at one lane {t['one_lane_tick_ms']:.6f} ms a tick; tick "
+        f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+        f"{t['weights_read_per_tick']} weights, {t['kv_tokens_mean']} cached "
+        f"tokens)")
 
-    cfg = get_config(SERVE_ARCH)
-    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-             cfg.d_ff, cfg.vocab_size, cfg.param_dtype) ==
-            (30, 4096, 32, 32, 11008, 102400, "bfloat16"),
-            f"{SERVE_ARCH} is not at its published widths: {cfg}")
+
+def build_model(torch, cfg, seed: int, tag: str):
+    """Random bf16 weights from a seeded generator, on the card."""
+    from repro_torch.models import init_params
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
-                         device="cuda")
-    torch.cuda.synchronize()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                         device=DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0,
+           "layers": cfg.num_layers,
            "param_count": cfg.param_count(),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters())}
-    log(f"[serve] {cfg.name}: {out['param_count']} parameters "
-        f"({out['param_bytes']} bytes) on the card in {out['init_s']:.3f} s")
+    log(f"[{tag}] {cfg.name}, {cfg.num_layers} layers: "
+        f"{out['param_count']} parameters ({out['param_bytes']} bytes) on "
+        f"the card in {out['init_s']:.3f} s")
+    return params, out
+
+
+def run_served(torch, K, cfg, params, requests, tag: str):
+    """Three replicas sharing ``params`` (speeds 1.0 / 0.7 / 1.4) serve
+    ``requests`` through ``HeftFrontEnd.run_continuous(fused=True)`` on a
+    ``MappingFabric(3, backend="fused", device_counters=True)``, four lanes,
+    16-token pages, staggered arrivals.  The launch counts are zeroed just
+    before the run and read just after.  Checks: every request's tokens
+    bitwise the dense ``generate``, every in-tick decision bitwise the plain
+    version, ``fused_decision`` launched once a decision tick and once a
+    host event, pages and state slots allocated == freed.  Returns (record,
+    fleet, fabric)."""
+    from repro_torch.sched_integration import MappingFabric
+    from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+
     fleet = [ReplicaHandle(f"replica{i}(x{s})",
                            ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
                                        lanes=SERVE_MAX_BATCH), speed=s)
              for i, s in enumerate(SERVE_SPEEDS)]
-    fab = MappingFabric(len(fleet), backend="fused", device="cuda",
+    fab = MappingFabric(len(fleet), backend="fused", device=DEVICE,
                         device_counters=True)
-    require(fab.backend_effective == "fused",
-            f"serve fabric runs {fab.backend_effective}")
+    require(DEVICE != "cuda" or fab.backend_effective == "fused",
+            f"{tag} fabric runs {fab.backend_effective}")
     front = HeftFrontEnd(fleet, fabric=fab)
-    rng = np.random.default_rng(seed)
-    requests = serve_requests(rng, cfg.vocab_size)
     arrivals = [min(i, 2 * SERVE_NEW_TOKENS // 3)
                 for i in range(len(requests))]
     staged, decided, host = record_decisions(fab)
@@ -969,49 +1055,107 @@ def phase_serve(torch, K, seed: int) -> dict:
     outs, stats = front.run_continuous(
         requests, arrival_ticks=arrivals, max_batch=SERVE_MAX_BATCH,
         page_size=SERVE_PAGE_SIZE, fused=True)
-    torch.cuda.synchronize()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
 
-    require(stats["fused_decisions"] > 0, f"serve: no in-tick decision {stats}")
-    require(counts["fused_decision"] == len(decided) + len(host),
-            f"serve: {counts['fused_decision']} fused_decision launches for "
+    require(stats["fused_decisions"] > 0, f"{tag}: no in-tick decision {stats}")
+    require(counts["fused_decision"] == len(decided) + len(host) > 0,
+            f"{tag}: {counts['fused_decision']} fused_decision launches for "
             f"{len(decided)} decision ticks + {len(host)} host events")
     require(stats["allocated"] == stats["freed"] > 0,
-            f"serve: {stats['allocated']} pages allocated, "
+            f"{tag}: {stats['allocated']} pages allocated, "
             f"{stats['freed']} freed")
+    require(stats["slots_allocated"] == stats["slots_freed"] == len(requests),
+            f"{tag}: {stats['slots_allocated']} state slots allocated, "
+            f"{stats['slots_freed']} freed, {len(requests)} requests")
     check_decisions(torch, staged, decided, fab.num_pes)
     for i, (prompt, nt) in enumerate(requests):
         dense = fleet[0].engine.generate(prompt[None, :], nt)[0]
         require(np.array_equal(outs[i], dense),
-                f"serve: request {i} paged tokens differ from the dense "
+                f"{tag}: request {i} paged tokens differ from the dense "
                 f"generate on the card")
     new = sum(nt for _, nt in requests)
-    log(f"[serve] run_continuous: {len(requests)} requests, {new} new tokens "
-        f"in {wall:.3f} s ({new / wall:.1f} tokens/s), {stats['ticks']} ticks "
-        f"x {len(fleet)} replicas, decisions {stats['fused_decisions']} "
+    log(f"[{tag}] run_continuous: {len(requests)} requests (prompts "
+        f"{[len(p) for p, _ in requests]}), {new} new tokens in {wall:.3f} s "
+        f"({new / wall:.1f} tokens/s), {stats['ticks']} ticks x "
+        f"{len(fleet)} replicas, decisions {stats['fused_decisions']} "
         f"in-tick / {stats['host_decisions']} host, launches {counts}, "
-        f"pages {stats['allocated']} == {stats['freed']}; every request "
-        f"bitwise the dense generate, every in-tick decision bitwise the "
-        f"plain version")
+        f"pages {stats['allocated']} == {stats['freed']}, state slots "
+        f"{stats['slots_allocated']} == {stats['slots_freed']}; every "
+        f"request bitwise the dense generate, every in-tick decision "
+        f"bitwise the plain version")
     unwrap(fab)
-    out.update(wall_s=wall, new_tokens=new, ticks=stats["ticks"],
-               decision_ticks=len(decided), host_events=len(host),
-               launches=counts, latency_s=stats["latency_s"],
-               fused_decisions=stats["fused_decisions"],
-               host_decisions=stats["host_decisions"])
-    t = time_serve_tick(torch, fleet[0].engine, fab, rng, cfg, seed)
+    record = dict(wall_s=wall, new_tokens=new, ticks=stats["ticks"],
+                  prompt_lens=[len(p) for p, _ in requests],
+                  decision_ticks=len(decided), host_events=len(host),
+                  launches=counts, latency_s=stats["latency_s"],
+                  fused_decisions=stats["fused_decisions"],
+                  host_decisions=stats["host_decisions"],
+                  pages=stats["allocated"], slots=stats["slots_allocated"])
+    return record, fleet, fab
+
+
+def phase_serve(torch, K, seed: int) -> dict:
+    """deepseek-7b at its published widths and depth, bf16, random weights
+    from a seeded generator, served by three replicas through the port's
+    ``HeftFrontEnd.run_continuous(fused=True)`` on a fused fabric."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE_ARCH)
+    check_widths(cfg, SERVE_ARCH)
+    params, out = build_model(torch, cfg, seed, "serve")
+    rng = np.random.default_rng(seed)
+    requests = serve_requests(rng, cfg.vocab_size)
+    record, fleet, fab = run_served(torch, K, cfg, params, requests, "serve")
+    out.update(record)
+    t = time_serve_tick(torch, fleet[0].engine, fab, rng, cfg, seed,
+                        prefill_len=47)
     out["timing"] = t
-    log(f"[serve] decode tick at {t['lanes']} lanes: {t['tick_ms']:.6f} ms "
-        f"({t['tokens_per_s']:.1f} tokens/s), carrying a decision "
-        f"{t['fused_tick_ms']:.6f} ms; fused_decision alone "
-        f"{t['decision_graph_ms']:.6f} ms from a graph "
-        f"({100 * t['decision_share']:.3f}% of the tick); prefill of 47 "
-        f"tokens {t['prefill_ms_47_tokens']:.6f} ms; one request alone at "
-        f"one lane {t['one_lane_tick_ms']:.6f} ms a tick; tick bound "
-        f"{t['bound_ms']:.6f} ms ({t['bound_by']}: "
-        f"{t['weights_read_per_tick']} weights, {t['kv_tokens_mean']} cached "
-        f"tokens)")
+    log_tick("serve", t)
+    return out
+
+
+def phase_serve_mamba(torch, K, seed: int) -> dict:
+    """falcon-mamba-7b at its published widths and depth (64 Mamba layers,
+    d_inner 8192, d_state 16, vocab 65024, bf16): the same serve run as
+    deepseek-7b's, on prompts a Mamba prefill accepts, then the tick and a
+    48-token prefill timed beside the tick's bound (the weights once, each
+    lane's conv and ssm state read and written once)."""
+    from repro_torch.configs import get_config
+
+    arch = "falcon_mamba_7b"
+    cfg = get_config(arch)
+    check_widths(cfg, arch)
+    params, out = build_model(torch, cfg, seed, "mamba")
+    rng = np.random.default_rng(seed)
+    requests = serve_requests(rng, cfg.vocab_size, MAMBA_PROMPTS)
+    record, fleet, fab = run_served(torch, K, cfg, params, requests, "mamba")
+    out.update(record)
+    t = time_serve_tick(torch, fleet[0].engine, fab, rng, cfg, seed,
+                        prefill_len=48)
+    out["timing"] = t
+    log_tick("mamba", t)
+    return out
+
+
+def phase_serve_cut(torch, K, arch: str, seed: int) -> dict:
+    """``arch`` at its published widths with ``CUT_LAYERS[arch]`` layers
+    (the whole model does not fit the card): three requests through the
+    same serve run, paged == dense bitwise at four lanes."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    check_widths(full, arch)
+    cfg = full.with_(num_layers=CUT_LAYERS[arch])
+    params, out = build_model(torch, cfg, seed, arch)
+    out["published_layers"] = full.num_layers
+    rng = np.random.default_rng(seed)
+    requests = serve_requests(rng, cfg.vocab_size, MAMBA_PROMPTS,
+                              n=CUT_REQUESTS)
+    record, _, _ = run_served(torch, K, cfg, params, requests, arch)
+    out.update(record)
     return out
 
 
@@ -1099,6 +1243,23 @@ def main() -> int:
     walls["serve"] = time.perf_counter() - t0
     log(f"[serve] wall {walls['serve']:.3f} s")
     launches["fused_decision"] += serve["launches"]["fused_decision"]
+    free_card(torch)
+
+    t0 = time.perf_counter()
+    mamba = phase_serve_mamba(torch, K, args.seed)
+    walls["mamba"] = time.perf_counter() - t0
+    log(f"[mamba] wall {walls['mamba']:.3f} s")
+    launches["fused_decision"] += mamba["launches"]["fused_decision"]
+    free_card(torch)
+
+    cut = {}
+    for arch in CUT_LAYERS:
+        t0 = time.perf_counter()
+        cut[arch] = phase_serve_cut(torch, K, arch, args.seed)
+        walls[arch] = time.perf_counter() - t0
+        log(f"[{arch}] wall {walls[arch]:.3f} s")
+        launches["fused_decision"] += cut[arch]["launches"]["fused_decision"]
+        free_card(torch)
 
     t0 = time.perf_counter()
     timing = phase_timing(torch, args.seed)
@@ -1136,7 +1297,7 @@ def main() -> int:
             "launches_runtime": runtime_counts,
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
-            "serve": serve,
+            "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
     log(card)

@@ -1,6 +1,6 @@
 # Assigned architectures (public-literature configs): the port's copy of
 # repro.configs.  Each module exposes CONFIG (full) and smoke() (reduced,
-# CPU-runnable).  The port's models run the six dense GQA ones so far.
+# CPU-runnable).
 from __future__ import annotations
 
 import importlib

@@ -9,8 +9,14 @@ Counterpart of ``repro.launch.serve`` without the mesh-backed paths
 ``--min-goodput`` come with ``dist/``).  It builds a small heterogeneous
 fleet of replicas (speeds 1.0 / 0.7 / 1.4) of the ``--arch`` smoke
 configuration, sharing one random parameter set (seed 0), and serves
-``--requests`` random prompts of 8-48 tokens through the ``HeftFrontEnd``.
+``--requests`` random prompts of 8-47 tokens through the ``HeftFrontEnd``.
 It runs on the card unless ``--device cpu`` is given.
+
+A Mamba layer prefills only prompts of at most its scan chunk or a
+multiple of it (``models/mamba.py``), so the random lengths fail for
+falcon-mamba-7b and jamba-v0.1-52b here as in the reference.
+``--prompt-lens 8,12,16`` takes the prompt lengths from the list instead,
+in turn.
 
 ``--paged`` serves through the block-paged KV pool: requests are HEFT_RT-
 mapped and admitted into the running batch at each decode tick
@@ -73,6 +79,9 @@ def main(argv=None) -> None:
     ap.add_argument("--slo-s", type=float, default=2.0,
                     help="with --paged: per-request latency SLO (seconds "
                          "from arrival to retire) for the goodput line")
+    ap.add_argument("--prompt-lens", default=None, metavar="N,N,...",
+                    help="prompt lengths, used in turn (default: drawn "
+                         "from 8-47)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (cpu to run "
                          "the plain path on the CPU)")
@@ -111,10 +120,14 @@ def main(argv=None) -> None:
     front = HeftFrontEnd(fleet, fabric=fabric, tracer=tracer, metrics=metrics)
 
     rng = np.random.default_rng(0)
+    lens = ([int(n) for n in args.prompt_lens.split(",")]
+            if args.prompt_lens else None)
     requests = [
-        (rng.integers(0, cfg.vocab_size, rng.integers(8, 48)).astype(np.int32),
+        (rng.integers(0, cfg.vocab_size,
+                      lens[i % len(lens)] if lens else rng.integers(8, 48)
+                      ).astype(np.int32),
          args.new_tokens)
-        for _ in range(args.requests)
+        for i in range(args.requests)
     ]
     tokens = sum(len(p) + nt for p, nt in requests)
     if args.paged:

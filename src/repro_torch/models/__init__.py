@@ -1,6 +1,6 @@
-# LM substrate of the port: decoder-only stacks behind one ModelConfig.  The
-# dense GQA block (local/global windows, softcaps, qk-norm, sandwich norms)
-# is ported; MLA, MoE and Mamba come with the next model slice.
+# LM substrate of the port: decoder-only stacks behind one ModelConfig —
+# GQA (local/global windows, softcaps, qk-norm, sandwich norms) and MLA
+# attention, dense and MoE FFNs, Mamba-1 SSM layers and their hybrids.
 from repro_torch.models.config import (SHAPES, ModelConfig, MoEConfig,
                                        ShapeConfig, SSMConfig)
 from repro_torch.models.convert import params_from_reference

@@ -1,7 +1,6 @@
-"""Attention blocks: GQA with local/global windows, softcap and qk-norm.
+"""Attention blocks: GQA (local/global windows, softcap, qk-norm) and MLA.
 
-Counterpart of the GQA half of ``repro.models.attention`` (MLA comes with the
-next model slice, ROADMAP queue 1 item 7b).
+Counterpart of ``repro.models.attention``.
 
 * Prefill attention is *chunked* with an online-softmax accumulator (the
   flash-attention recurrence in plain PyTorch): a loop over query chunks,
@@ -9,6 +8,10 @@ next model slice, ROADMAP queue 1 item 7b).
   layers (Gemma-2) also lower-bound the key-chunk loop.
 * Decode attends one query against the whole cache, ``Smax`` slots, with a
   scalar position or one position per row.
+* MLA (DeepSeek-V2) caches only the compressed latent (``kv_lora_rank`` +
+  the RoPE dims).  Prefill expands it to per-head K / V and runs the
+  chunked attention; decode folds ``w_uk`` into the query, attends in the
+  latent space and applies ``w_uv`` after.
 
 Scores, softmax and the value sum are explicit ``einsum`` / ``softmax`` in
 float32 with the reference's ``NEG`` mask: masked slots get ``NEG`` before
@@ -213,3 +216,116 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     dt = dtype_of(cfg.compute_dtype)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": CacheSpec(shape, dt), "v": CacheSpec(shape, dt)}
+
+
+# ===========================================================================
+# MLA (DeepSeek-V2)
+# ===========================================================================
+
+class MLAttention(nn.Module):
+    """The latent projections ``w_dkv`` (+ f32 ``kv_norm``), ``w_kr``,
+    ``w_uk`` / ``w_uv`` (kv_lora, H, ·) and ``wo``; queries through
+    ``w_dq`` / f32 ``q_norm`` / ``w_uq`` with a q LoRA, else ``wq``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        D, H, R = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+        nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        vd = cfg.v_head_dim
+
+        def dense(shape):
+            return param(dense_init(shape, dt, generator, device))
+
+        self.w_dkv = dense((D, R))
+        self.kv_norm = param(torch.zeros(R, dtype=torch.float32,
+                                         device=device))
+        self.w_kr = dense((D, rope_d))
+        self.w_uk = dense((R, H, nope))
+        self.w_uv = dense((R, H, vd))
+        self.wo = dense((H * vd, D))
+        if cfg.q_lora_rank > 0:
+            self.w_dq = dense((D, cfg.q_lora_rank))
+            self.q_norm = param(torch.zeros(cfg.q_lora_rank,
+                                            dtype=torch.float32,
+                                            device=device))
+            self.w_uq = dense((cfg.q_lora_rank, H, nope + rope_d))
+        else:
+            self.wq = dense((D, H, nope + rope_d))
+
+
+def init_mla_params(cfg: ModelConfig, *, generator, device) -> MLAttention:
+    return MLAttention(cfg, generator=generator, device=device)
+
+
+def _mla_queries(params: MLAttention, x, cfg: ModelConfig, positions):
+    nope = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank > 0:
+        cq = rms_norm(x @ params.w_dq, params.q_norm, cfg.norm_eps)
+        q = torch.einsum("bsr,rhd->bshd", cq, params.w_uq)
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    return q[..., :nope], apply_rope(q[..., nope:], positions,
+                                     cfg.rope_theta)
+
+
+def mla_block(
+    params: MLAttention,
+    x: torch.Tensor,              # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,      # (S,) or (B, 1)
+    cache: dict | None = None,    # {'ckv': (B,Smax,R), 'kr': (B,Smax,rope)}
+    decode_pos=None,
+    **_unused,
+) -> tuple[torch.Tensor, dict | None]:
+    B, S, _ = x.shape
+    H, vd = cfg.num_heads, cfg.v_head_dim
+    rope_d = cfg.qk_rope_head_dim
+    scale = (cfg.qk_nope_head_dim + rope_d) ** -0.5
+    f32 = torch.float32
+
+    q_nope, q_rope = _mla_queries(params, x, cfg, positions)
+    ckv = rms_norm(x @ params.w_dkv, params.kv_norm, cfg.norm_eps)  # (B,S,R)
+    kr = apply_rope((x @ params.w_kr)[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]                     # (B,S,rope)
+
+    if decode_pos is not None:
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token a row and a cache")
+        _write_token(cache["ckv"], ckv[:, 0], decode_pos)
+        _write_token(cache["kr"], kr[:, 0], decode_pos)
+        ckv_c, kr_c = cache["ckv"], cache["kr"]
+        # absorbed decode: w_uk folds into q, the attention runs over the
+        # latent cache, w_uv applies after
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, params.w_uk)
+        s = (torch.einsum("bshr,btr->bhst", q_abs.to(f32), ckv_c.to(f32))
+             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr_c.to(f32))
+             ) * scale
+        kpos = torch.arange(ckv_c.shape[1], device=x.device)
+        rows = torch.as_tensor(decode_pos, device=x.device).reshape(-1)
+        mask = kpos[None, :] <= rows[:, None]                  # (1|B, Smax)
+        s = torch.where(mask[:, None, None, :], s, NEG)
+        p = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", p, ckv_c.to(f32))
+        out = torch.einsum("bshr,rhd->bshd", o_lat.to(x.dtype), params.w_uv)
+    else:
+        # prefill: expand to per-head K / V and run the chunked attention
+        k_nope = torch.einsum("bsr,rhd->bshd", ckv, params.w_uk)
+        v = torch.einsum("bsr,rhd->bshd", ckv, params.w_uv)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rope_d)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_causal_attention(q, k, v, scale=scale, attn_cap=None,
+                                       window=None)
+        if cache is not None:     # prefill: fill the cache's first S slots
+            cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+            cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+    y = out.reshape(B, S, H * vd) @ params.wo
+    return y, cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    dt = dtype_of(cfg.compute_dtype)
+    return {"ckv": CacheSpec((batch, max_len, cfg.kv_lora_rank), dt),
+            "kr": CacheSpec((batch, max_len, cfg.qk_rope_head_dim), dt)}

@@ -11,9 +11,7 @@ the layer stack is structurally identical.
 
 The serving cost model reads :data:`SHAPES` from here.  ``param_count`` /
 ``active_param_count`` count the port's own parameter shapes
-(:func:`repro_torch.models.model.param_shapes`); for the configurations whose
-blocks are not ported yet (MLA, MoE, Mamba) they raise
-``NotImplementedError``.
+(:func:`repro_torch.models.model.param_shapes`).
 """
 
 from __future__ import annotations
@@ -156,9 +154,16 @@ class ModelConfig:
         return sum(math.prod(s) for s in param_shapes(self).values())
 
     def active_param_count(self) -> int:
-        """Parameters touched per token.  Every ported block is dense, so
-        this is :meth:`param_count` (MoE configs raise there)."""
-        return self.param_count()
+        """Parameters touched per token (MoE: the routed experts' share
+        ``top_k / num_experts``, rounded down a leaf, plus the rest)."""
+        from repro_torch.models.model import param_shapes
+        total = 0
+        for name, shape in param_shapes(self).items():
+            n = math.prod(shape)
+            if "experts" in name.split(".") and self.moe is not None:
+                n = n * self.moe.top_k // self.moe.num_experts
+            total += n
+        return total
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,12 @@
 """Carry a reference parameter tree into the port's model.
 
 ``repro.models.init_params`` returns nested dicts: ``embed``, ``lm_head``
-(untied only), ``final_norm``, ``first`` (a list, empty for every dense
-configuration) and ``stages``, whose leaves carry a leading ``num_stages``
-axis (``stages/sub{j}/...``, slot ``j`` of the stage).  Layer ``s * period
-+ j`` of the port is slot ``j`` of stage ``s``, so both packages compute the
-same function from the same numbers.
+(untied only), ``final_norm``, ``first`` (the leading dense layers, a list;
+empty but for DeepSeek-V2) and ``stages``, whose leaves carry a leading
+``num_stages`` axis (``stages/sub{j}/...``, slot ``j`` of the stage).  Layer
+``i`` of the port is ``first[i]`` for ``i < first_dense_layers``, and layer
+``first_dense_layers + s * period + j`` is slot ``j`` of stage ``s``, so both
+packages compute the same function from the same numbers.
 """
 
 from __future__ import annotations
@@ -30,18 +31,25 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
 def _reference_state(cfg: ModelConfig, tree: dict) -> dict:
     """The reference tree (nested dicts and lists of numpy arrays) as the
     port's ``state_dict``: parameter name → numpy array."""
-    if tree.get("first"):
-        raise ValueError("leading dense layers are not part of a ported "
-                         "configuration")
     out = {k: np.asarray(tree[k]) for k in ("embed", "final_norm", "lm_head")
            if k in tree}
+    first = tree.get("first") or []
+    if isinstance(first, dict):         # list levels through an .npz
+        first = [first[k] for k in sorted(first, key=int)]
+    if len(first) != cfg.first_dense_layers:
+        raise ValueError(f"first: {len(first)} layers, the config has "
+                         f"{cfg.first_dense_layers}")
+    for i, layer in enumerate(first):
+        for name, leaf in _flatten(layer, "", {}).items():
+            out[f"layers.{i}.{name}"] = leaf
+    fd = cfg.first_dense_layers
     for j in range(cfg.period):
         for name, leaf in _flatten(tree["stages"][f"sub{j}"], "", {}).items():
             if leaf.shape[0] != cfg.num_stages:
                 raise ValueError(f"stages/sub{j}/{name}: leading axis "
                                  f"{leaf.shape[0]} != {cfg.num_stages} stages")
             for s in range(cfg.num_stages):
-                out[f"layers.{s * cfg.period + j}.{name}"] = leaf[s]
+                out[f"layers.{fd + s * cfg.period + j}.{name}"] = leaf[s]
     return out
 
 

@@ -3,8 +3,11 @@
 Counterpart of ``repro.models.model``.  The parameters are one
 :class:`Transformer` module: ``embed``, ``final_norm`` (f32), ``lm_head``
 (unless the embeddings are tied) and ``layers``, the sub-layers in layer
-order.  The caches are one tensor per leaf name for the whole stack:
-``{"k": (L, B, Smax, KV, hd), "v": ...}``, written in place by the steps.
+order.  The caches are one tensor per leaf name, stacked over the layers
+that have the leaf (``models/transformer.py``): ``{"k": (L_attn, B, Smax,
+KV, hd), "v": ...}``, MLA's ``ckv`` / ``kr`` ``(L_attn, B, Smax, ·)``,
+Mamba's ``conv`` ``(L_mamba, B, K-1, d_inner)`` and ``ssm`` ``(L_mamba, B,
+d_inner, N)`` in f32; the steps write them in place.
 
 Entry points take the parameters first, as the reference's do; the module's
 own ``forward`` is the same function.  ``init_params`` runs on the card
@@ -18,10 +21,11 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dtype_of, embed_init, param, rms_norm,
                                        softcap)
-from repro_torch.models.transformer import _sublayer_plan, apply_stack, init_stage
+from repro_torch.models.transformer import apply_stack, init_layers, layer_plan
 
 
 class Transformer(nn.Module):
@@ -29,7 +33,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, generator, device):
         super().__init__()
-        _sublayer_plan(cfg)               # raises for blocks not ported yet
         dt = dtype_of(cfg.param_dtype)
         self.cfg = cfg
         self.embed = param(embed_init((cfg.vocab_size, cfg.d_model), dt,
@@ -39,10 +42,8 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = param(embed_init((cfg.d_model, cfg.vocab_size), dt,
                                             generator, device))
-        self.layers = nn.ModuleList()
-        for _ in range(cfg.num_stages):
-            self.layers.extend(init_stage(cfg, generator=generator,
-                                          device=device))
+        self.layers = nn.ModuleList(init_layers(cfg, generator=generator,
+                                                device=device))
 
     def forward(self, tokens, **kw):
         return forward(self, tokens, self.cfg, **kw)
@@ -94,8 +95,9 @@ def _unembed(params: Transformer, x, cfg: ModelConfig):
 
 def forward(params: Transformer, tokens, cfg: ModelConfig, *, caches=None,
             decode_pos=None):
-    """tokens (B,S) → (hidden (B,S,D), caches, metrics).  ``metrics`` is
-    empty: only MoE blocks report any."""
+    """tokens (B,S) → (hidden (B,S,D), caches, metrics).  ``metrics`` holds
+    the MoE layers' ``aux_loss`` / ``z_loss`` / ``expert_load`` summed over
+    the layers, and is empty without MoE layers."""
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     if decode_pos is None:
@@ -105,10 +107,11 @@ def forward(params: Transformer, tokens, cfg: ModelConfig, *, caches=None,
         # a shared position → (S,); one per row (continuous batching) →
         # (B, 1), broadcastable against the (..., S) layout of apply_rope
         positions = pos.expand(S) if pos.dim() == 0 else pos[:, None]
-    x, caches = apply_stack(params.layers, x, cfg, positions=positions,
-                            caches=caches, decode_pos=decode_pos)
+    x, caches, metrics = apply_stack(params.layers, x, cfg,
+                                     positions=positions, caches=caches,
+                                     decode_pos=decode_pos)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x, caches, {}
+    return x, caches, metrics
 
 
 def logits_fn(params: Transformer, tokens, cfg: ModelConfig):
@@ -121,12 +124,23 @@ def logits_fn(params: Transformer, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """``{"k": CacheSpec, "v": CacheSpec}``, each ``(L, batch, max_len, KV,
-    hd)``: one tensor per leaf name for the whole stack."""
-    _sublayer_plan(cfg)
-    spec = attn_mod.gqa_cache_spec(cfg, batch, max_len)
-    return {name: attn_mod.CacheSpec((cfg.num_layers,) + s.shape, s.dtype)
-            for name, s in spec.items()}
+    """Leaf name → ``CacheSpec``: one tensor per leaf name, stacked over the
+    layers of the kind that has it (see the module docstring)."""
+    plan = layer_plan(cfg)
+    out = {}
+    for kind in ("attn", "mamba"):
+        n = sum(s["kind"] == kind for s in plan)
+        if not n:
+            continue
+        if kind == "mamba":
+            spec = mamba_mod.mamba_cache_spec(cfg, batch)
+        elif cfg.attn_type == "mla":
+            spec = attn_mod.mla_cache_spec(cfg, batch, max_len)
+        else:
+            spec = attn_mod.gqa_cache_spec(cfg, batch, max_len)
+        out.update({name: attn_mod.CacheSpec((n,) + s.shape, s.dtype)
+                    for name, s in spec.items()})
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
@@ -152,7 +166,8 @@ def prefill_step(params: Transformer, tokens, cfg: ModelConfig,
 def decode_step(params: Transformer, caches, tokens, pos, cfg: ModelConfig):
     """One decode step.  tokens (B,1); pos: the position of this token, one
     shared (an int or a 0-d tensor) or one per row (a (B,) int tensor, for
-    continuous batching).  Rows are independent.  The caches are updated in
+    continuous batching).  Rows are independent, except through the MoE
+    capacity above 4 rows (``models/moe.py``).  The caches are updated in
     place.  Returns (logits (B,V), caches)."""
     hidden, caches, _ = forward(params, tokens, cfg, caches=caches,
                                 decode_pos=pos)

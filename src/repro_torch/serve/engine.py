@@ -24,7 +24,10 @@ Public contracts:
   exhaustion refuses admission (``admit() -> None``: callers queue, never
   drop), and each request's tokens are bitwise ``generate``'s under any
   admission interleaving.  ``snapshot_pages`` / ``restore_pages`` move one
-  in-flight request between engines.
+  in-flight request between engines.  With MoE layers that holds at 4 lanes
+  or fewer: above 4 a token can be dropped by the expert capacity because
+  of its batch-mates (``models/moe.py``), in the paged tick and in the
+  dense ``generate`` alike, as in the reference.
 * **Front end** — ``run_batch`` (one HEFT_RT mapping event, a whole
   ``generate`` per request) and ``run_continuous`` (per-tick admission:
   HEFT_RT maps arrivals to sticky per-replica FIFO queues, each tick drains
@@ -49,6 +52,12 @@ from repro_torch.obs.metrics import Stopwatch
 def _host_scale_s(prompt_tokens, new_tokens):
     """The abstract-fleet service-time estimate (seconds, elementwise)."""
     return 1e-4 * prompt_tokens + 2e-3 * new_tokens
+
+
+def _lane_rows(caches) -> int:
+    """The decode lane count of a cache tree: the batch axis of any leaf
+    (a Mamba-only model has no ``k``)."""
+    return next(iter(caches.values())).shape[1]
 
 
 def _span(tracer, name, **args):
@@ -127,7 +136,7 @@ class ServeEngine:
         ones); the step runs at the caches' lane count."""
         tok = torch.as_tensor(np.asarray(tok), device=self.device)
         B = tok.shape[0]
-        rows = caches["k"].shape[1]
+        rows = _lane_rows(caches)
         with torch.inference_mode(), _span(self.tracer, "engine.decode_step",
                                            pos=pos):
             lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
@@ -150,7 +159,7 @@ class ServeEngine:
         tr = self.tracer
         with torch.inference_mode():
             logits, caches = self.start(prompts)     # the engine.prefill span
-            rows = caches["k"].shape[1]
+            rows = _lane_rows(caches)
             lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
                                    device=self.device)
             lane_pos = torch.zeros(rows, dtype=torch.int32, device=self.device)
@@ -466,7 +475,8 @@ class HeftFrontEnd:
 
         Returns ``(outputs, stats)``: outputs in request order; stats with
         ``ticks``, per-replica ``processed``, the pools' cumulative
-        ``allocated`` / ``freed`` page counts (equal at drain), the
+        ``allocated`` / ``freed`` page counts and ``slots_allocated`` /
+        ``slots_freed`` slot counts (each pair equal at drain), the
         ``fused_decisions`` / ``host_decisions`` split, and ``latency_s``,
         each request's host seconds from the start of its arrival tick to
         its retire.
@@ -575,6 +585,10 @@ class HeftFrontEnd:
             "allocated": sum(r.engine.paged.pool.allocated
                              for r in self.replicas),
             "freed": sum(r.engine.paged.pool.freed for r in self.replicas),
+            "slots_allocated": sum(r.engine.paged.pool.slots_allocated
+                                   for r in self.replicas),
+            "slots_freed": sum(r.engine.paged.pool.slots_freed
+                               for r in self.replicas),
             "fused_decisions": fused_decisions,
             "host_decisions": host_decisions,
             "latency_s": latency,

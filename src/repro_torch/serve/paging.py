@@ -7,27 +7,35 @@ decode ticks.
 
 Layout
 ------
-The model's caches are one tensor per leaf name, ``{"k": (L, B, Smax, KV,
-hd), "v": ...}``.  A leaf's pool re-cuts the batch axis into ``num_pages +
-1`` pages and ``Smax`` into ``page_size``:
+The model's caches are one tensor per leaf name, stacked over the layers
+that have it (``models/model.py``).  A leaf with a sequence axis (``k`` /
+``v``, MLA's ``ckv`` / ``kr``) is paged: its pool re-cuts the batch axis
+into ``num_pages + 1`` pages and ``Smax`` into ``page_size``:
 
     dense (L, B, Smax, KV, hd)  →  pool (L, num_pages + 1, page_size, KV, hd)
 
 The last page (index ``num_pages``) is the *scratch page*: padded lanes and
 unreserved page-table entries point at it, so every tick has the same shapes
-and stray writes land somewhere harmless.  A host page table (``max_batch +
-1`` rows × ``pages_per_slot`` page ids; row ``max_batch`` all scratch) maps
-each slot onto its pages.  Every page a request will need is reserved when
-it is admitted (``ceil((S0 + new_tokens) / page_size)``), so decode never
-runs out of pages: exhaustion gates admission only, and callers queue,
-never drop.
+and stray writes land somewhere harmless.  A state leaf (Mamba's ``conv`` /
+``ssm``, no sequence axis) lives in a *state pool* of ``max_batch + 1``
+slots, the last being the scratch slot:
+
+    dense (L, B, K-1, d_inner)  →  pool (L, max_batch + 1, K-1, d_inner)
+
+A slot id indexes both the page table and the state pool.  A host page
+table (``max_batch + 1`` rows × ``pages_per_slot`` page ids; row
+``max_batch`` all scratch) maps each slot onto its pages.  Every page a
+request will need is reserved when it is admitted (``ceil((S0 +
+new_tokens) / page_size)``), so decode never runs out of pages: exhaustion
+gates admission only, and callers queue, never drop.
 
 Decode tick
 -----------
-A tick gathers the lanes' pages into a dense ``(L, lanes, Smax, ...)`` view,
-runs ``decode_step`` with one position per lane, scatters the one token each
-lane wrote back to its page, and takes the argmax on the device; the host
-receives the ``(lanes,)`` tokens in one copy.
+A tick gathers the lanes' pages into a dense ``(L, lanes, Smax, ...)`` view
+and their state rows by slot id, runs ``decode_step`` with one position per
+lane, scatters back the one token each lane wrote to its page and each
+lane's new state row to its slot, and takes the argmax on the device; the
+host receives the ``(lanes,)`` tokens in one copy.
 
 **Row invariance.**  Every decode step of an engine, paged or dense
 (``ServeEngine.generate``), runs at the engine's fixed lane count
@@ -51,9 +59,14 @@ the device counters accumulate when the fabric has them, and one
 device-to-host copy brings back ``pack_tick_outputs(tokens, decision)``;
 ``fabric.commit_tick_decision`` adopts the decision lanes.
 
+With MoE layers, row invariance holds while no token can be dropped: at 4
+lanes or fewer (``models/moe.py``).  Above that a lane's tokens can depend
+on its batch-mates' routing, in this runtime as in the reference's.
+
 Pages are also the migration and recovery unit: :meth:`PagedRuntime
-.snapshot_slot` captures one request's pages and decode state as numpy, and
-:meth:`PagedRuntime.restore_slot` re-admits it on any engine with room.
+.snapshot_slot` captures one request's pages, state rows and decode state
+as numpy, and :meth:`PagedRuntime.restore_slot` re-admits it on any engine
+with room.
 """
 
 from __future__ import annotations
@@ -69,9 +82,9 @@ from repro_torch.kernels import decision_hw, pack_tick_outputs
 from repro_torch.models.model import cache_specs
 from repro_torch.obs.device import accumulate_counters
 
-# Cache leaves with a sequence axis, paged by name (MLA's ckv/kr come with
-# the MLA port).
-PAGED_LEAVES = frozenset({"k", "v"})
+# Leaf classification by name, as the reference's.
+PAGED_LEAVES = frozenset({"k", "v", "ckv", "kr"})
+STATE_LEAVES = frozenset({"conv", "ssm"})
 
 
 @dataclass
@@ -95,12 +108,15 @@ class _Slot:
 
 
 class PagePool:
-    """The page pools on ``device`` plus the host page table and free lists.
+    """The page and state pools on ``device`` plus the host page table and
+    free lists.
 
     Allocation bookkeeping only, no model math.  ``num_pages`` defaults to
     full occupancy (``max_batch * pages_per_slot``); set it lower to make
-    admission queue.  ``allocated`` / ``freed`` count pages cumulatively and
-    are equal whenever no slot is in flight.
+    admission queue.  ``allocated`` / ``freed`` count pages and
+    ``slots_allocated`` / ``slots_freed`` slots (each slot holds one state
+    row a state leaf), cumulatively; each pair is equal whenever no slot is
+    in flight.
     """
 
     def __init__(self, cfg, max_batch: int, page_size: int, max_len: int,
@@ -127,14 +143,20 @@ class PagePool:
         self.free_slot_ids: deque[int] = deque(range(self.max_batch))
         self.allocated = 0
         self.freed = 0
+        self.slots_allocated = 0
+        self.slots_freed = 0
         self.pools = {}
         for name, spec in cache_specs(cfg, 1, max_len).items():
-            if name not in PAGED_LEAVES:
+            if name in PAGED_LEAVES:
+                L, _, _, *rest = spec.shape
+                shape = (L, self.num_pages + 1, self.page_size, *rest)
+            elif name in STATE_LEAVES:
+                L, _, *rest = spec.shape
+                shape = (L, self.max_batch + 1, *rest)
+            else:
                 raise ValueError(f"unknown cache leaf {name!r}")
-            L, _, _, *rest = spec.shape
-            self.pools[name] = torch.zeros(
-                (L, self.num_pages + 1, self.page_size, *rest),
-                dtype=spec.dtype, device=device)
+            self.pools[name] = torch.zeros(shape, dtype=spec.dtype,
+                                           device=device)
 
     # -- allocation ---------------------------------------------------------
 
@@ -157,6 +179,7 @@ class PagePool:
         slot = self.free_slot_ids.popleft()
         pages = [self.free_page_ids.popleft() for _ in range(n)]
         self.allocated += n
+        self.slots_allocated += 1
         row = np.full(self.pages_per_slot, self.scratch_page, dtype=np.int32)
         row[:n] = pages
         self.table[slot] = row
@@ -167,6 +190,7 @@ class PagePool:
         self.free_page_ids.extend(pages)
         self.free_slot_ids.append(slot)
         self.freed += len(pages)
+        self.slots_freed += 1
 
     @property
     def free_pages(self) -> int:
@@ -216,17 +240,20 @@ class PagedRuntime:
             raise ValueError("new_tokens must be >= 1")
         if not self.pool.can_admit(total):
             return None
-        slot, pages = self.pool.reserve(total)
         eng = self.engine
-        pp, ps = self.pool.pages_per_slot, self.pool.page_size
         with torch.inference_mode():
             logits, dense = eng._prefill(
                 torch.from_numpy(prompt[None]).to(eng.device))
+            slot, pages = self.pool.reserve(total)
+            pp, ps = self.pool.pages_per_slot, self.pool.page_size
             row = torch.from_numpy(self.pool.table[slot]).to(eng.device)
             for name, pool in self.pool.pools.items():
-                d = dense[name][:, 0]                 # (L, Smax, ...)
-                pool[:, row.long()] = d.reshape(d.shape[0], pp, ps,
-                                                *d.shape[2:])
+                d = dense[name][:, 0]                 # (L, ...)
+                if name in STATE_LEAVES:
+                    pool[:, slot] = d
+                else:
+                    pool[:, row.long()] = d.reshape(d.shape[0], pp, ps,
+                                                    *d.shape[2:])
             first = int(logits[0].argmax())
         self.slots[slot] = _Slot(prompt=prompt, new_tokens=int(new_tokens),
                                  pages=pages, tokens=[first])
@@ -242,16 +269,17 @@ class PagedRuntime:
 
     def _lane_inputs(self, active: list[int]) -> torch.Tensor:
         """One host→device copy of the tick's int32 inputs: the lanes' page
-        table rows, positions and current tokens (scratch lanes: the scratch
-        row, position 0, token 0)."""
+        table rows, positions, current tokens and slot ids (scratch lanes:
+        the scratch row, position 0, token 0, the scratch slot)."""
         lanes, pp = self.engine.lanes, self.pool.pages_per_slot
         slot_ids = active + [self.pool.scratch_slot] * (lanes - len(active))
-        host = np.zeros(lanes * (pp + 2), dtype=np.int32)
+        host = np.zeros(lanes * (pp + 3), dtype=np.int32)
         host[:lanes * pp] = self.pool.table[slot_ids].reshape(-1)
         for i, s in enumerate(active):
             rec = self.slots[s]
             host[lanes * pp + i] = rec.write_pos
             host[lanes * (pp + 1) + i] = rec.tokens[-1]
+        host[lanes * (pp + 2):] = slot_ids
         return torch.from_numpy(host).to(self.engine.device)
 
     def _upload_event(self, a_p, ex_p) -> tuple[torch.Tensor, torch.Tensor]:
@@ -289,16 +317,25 @@ class PagedRuntime:
                 a_d, ex_d = self._upload_event(a_p, ex_p)
             table = ints[:lanes * pp].view(lanes, pp).long()
             pos = ints[lanes * pp:lanes * (pp + 1)]
-            tok = ints[lanes * (pp + 1):].view(lanes, 1)
-            dense = {name: pool[:, table].reshape(pool.shape[0], lanes,
-                                                  pp * ps, *pool.shape[3:])
-                     for name, pool in self.pool.pools.items()}
+            tok = ints[lanes * (pp + 1):lanes * (pp + 2)].view(lanes, 1)
+            slot_ids = ints[lanes * (pp + 2):].long()
+            dense = {}
+            for name, pool in self.pool.pools.items():
+                if name in STATE_LEAVES:
+                    dense[name] = pool[:, slot_ids]
+                else:
+                    dense[name] = pool[:, table].reshape(
+                        pool.shape[0], lanes, pp * ps, *pool.shape[3:])
             logits, dense = eng._decode(dense, tok, pos)
             rows = torch.arange(lanes, device=eng.device)
             page = table[rows, (pos // ps).long()]
             off = (pos % ps).long()
             for name, pool in self.pool.pools.items():
-                pool[:, page, off] = dense[name][:, rows, pos.long()]
+                if name in STATE_LEAVES:
+                    # scratch lanes all write the scratch slot: harmless
+                    pool[:, slot_ids] = dense[name]
+                else:
+                    pool[:, page, off] = dense[name][:, rows, pos.long()]
             toks = logits.argmax(dim=-1).to(torch.int32)
             decision = None
             if sched is None:
@@ -332,10 +369,12 @@ class PagedRuntime:
 
     def snapshot_slot(self, slot: int) -> dict:
         """Host snapshot of ONE request: its pages (page-shaped, not the
-        dense cache) + decode state.  O(request length), not O(pool)."""
+        dense cache), its state rows and its decode state.  O(request
+        length), not O(pool)."""
         rec = self.slots[slot]
         row = torch.from_numpy(self.pool.table[slot]).long()
-        pages = {name: pool[:, row.to(pool.device)].cpu().numpy()
+        pages = {name: (pool[:, slot] if name in STATE_LEAVES
+                        else pool[:, row.to(pool.device)]).cpu().numpy()
                  for name, pool in self.pool.pools.items()}
         return {"pages": pages, "prompt": rec.prompt.copy(),
                 "new_tokens": rec.new_tokens, "tokens": list(rec.tokens)}
@@ -351,8 +390,11 @@ class PagedRuntime:
         slot, pages = self.pool.reserve(total)
         row = torch.from_numpy(self.pool.table[slot]).long()
         for name, pool in self.pool.pools.items():
-            pool[:, row.to(pool.device)] = torch.from_numpy(
-                snap["pages"][name]).to(pool.device)
+            vals = torch.from_numpy(snap["pages"][name]).to(pool.device)
+            if name in STATE_LEAVES:
+                pool[:, slot] = vals
+            else:
+                pool[:, row.to(pool.device)] = vals
         self.slots[slot] = _Slot(prompt=np.asarray(snap["prompt"],
                                                    dtype=np.int32),
                                  new_tokens=int(snap["new_tokens"]),

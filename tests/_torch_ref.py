@@ -33,7 +33,8 @@ type(batching.primitive_batchers).__contains__ = lambda self, k: True
 
 def rand_tree(shapes, rng, name=""):
     """Float32 leaves on the reference's shapes: matrices N(0, 1/fan_in),
-    the embedding N(0, 1), norm weights N(0, 0.1**2)."""
+    the embedding N(0, 1), norm weights and the other vectors (Mamba's
+    conv_b, dt_bias, D) N(0, 0.1**2)."""
     if isinstance(shapes, dict):
         return {k: rand_tree(v, rng, k) for k, v in shapes.items()}
     if isinstance(shapes, list):
@@ -41,7 +42,7 @@ def rand_tree(shapes, rng, name=""):
     x = rng.standard_normal(shapes)
     if name == "embed":
         pass
-    elif name.endswith("norm"):
+    elif name.endswith("norm") or len(shapes) == 1:
         x = 0.1 * x
     else:
         x = x / np.sqrt(shapes[-2])

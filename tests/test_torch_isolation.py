@@ -31,7 +31,7 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _modules()
-    assert len(mods) >= 56
+    assert len(mods) >= 58
     for new in ("repro_torch.kernels.oddeven_sort",
                 "repro_torch.kernels.eft_select",
                 "repro_torch.core.heft_static", "repro_torch.core.heft_energy",
@@ -45,7 +45,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.models.layers", "repro_torch.models.ffn",
                 "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.models.model",
-                "repro_torch.models.convert", "repro_torch.serve",
+                "repro_torch.models.convert", "repro_torch.models.mamba",
+                "repro_torch.models.moe", "repro_torch.serve",
                 "repro_torch.serve.paging", "repro_torch.serve.engine",
                 "repro_torch.launch.serve"):
         assert new in mods, new

@@ -30,6 +30,7 @@ import torch
 from _hypothesis_compat import given, settings, st
 from _torch_ref import REPO, run_reference, unflatten
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import heft_rt_numpy
 from repro_torch.models import ModelConfig, init_params, params_from_reference
 from repro_torch.obs import MetricsRegistry, Tracer, validate_chrome_trace
@@ -245,6 +246,116 @@ def test_generate_batches_and_samples_with_an_explicit_generator():
              for _ in range(2)]
     np.testing.assert_array_equal(draws[0], draws[1])
     np.testing.assert_array_equal(draws[0][:, :6], prompts)
+
+
+# ---------------------------------------------------------------------------
+# Mamba state, hybrid MoE and MLA in the paged runtime
+# ---------------------------------------------------------------------------
+
+STATE_ARCHS = ["falcon_mamba_7b", "jamba_v0_1_52b", "deepseek_v2_236b"]
+CHUNKABLE = [1, 2, 3, 4, 8, 12, 16]    # the smoke configs' Mamba chunk: 4
+
+
+def _arch_params(arch):
+    if arch not in _CACHE:
+        _CACHE[arch] = init_params(get_smoke_config(arch),
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
+    return _CACHE[arch]
+
+
+def _arch_engine(arch, **kw):
+    """Four decode lanes: with MoE layers no token can be dropped there."""
+    return ServeEngine(get_smoke_config(arch), _arch_params(arch), max_len=32,
+                       lanes=4, **kw)
+
+
+def _arch_requests(n, rng, vocab):
+    return [(rng.integers(1, vocab, int(rng.choice(CHUNKABLE)))
+             .astype(np.int32), int(rng.integers(1, 9))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_state_models_random_interleaving_bit_identical_to_dense(arch):
+    """Random admission orders, pool sizes and slot counts at four lanes:
+    every request's tokens are bitwise the dense ``generate``'s, and pages
+    and state slots come back."""
+    cfg = get_smoke_config(arch)
+    oracle = _arch_engine(arch)
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        reqs = _arch_requests(5, rng, cfg.vocab_size)
+        eng = _arch_engine(arch)
+        max_batch = int(rng.integers(2, 5))
+        eng.start_paged(max_batch=max_batch, page_size=8,
+                        num_pages=int(rng.choice([4, 8, 4 * max_batch])))
+        out, _ = _drain(eng, reqs, rng.permutation(len(reqs)).tolist())
+        for i, (p, nt) in enumerate(reqs):
+            np.testing.assert_array_equal(out[i],
+                                          oracle.generate(p[None], nt)[0])
+        pool = eng.paged.pool
+        assert pool.allocated == pool.freed
+        assert pool.slots_allocated == pool.slots_freed == len(reqs)
+        assert pool.free_slots == max_batch
+
+
+def test_state_pool_slots_hold_the_prefill_state_and_come_back():
+    arch = "falcon_mamba_7b"
+    cfg = get_smoke_config(arch)
+    eng = _arch_engine(arch)
+    rt = eng.start_paged(max_batch=2, page_size=8)
+    pool = rt.pool
+    assert set(pool.pools) == {"conv", "ssm"}
+    assert pool.pools["ssm"].shape == (cfg.num_layers, 3, cfg.ssm.d_inner,
+                                       cfg.ssm.d_state)
+    assert pool.pools["conv"].shape == (cfg.num_layers, 3,
+                                        cfg.ssm.d_conv - 1, cfg.ssm.d_inner)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    with pytest.raises(ValueError, match="multiple"):   # 6 tokens, chunk 4
+        eng.admit(prompt[:6], 2)
+    assert pool.free_slots == 2 and pool.slots_allocated == 0
+    slot = eng.admit(prompt, 4)
+    _, dense = eng.start(prompt[None])
+    for name in ("conv", "ssm"):
+        assert torch.equal(pool.pools[name][:, slot], dense[name][:, 0])
+    other = eng.admit(prompt[:4], 4)
+    assert eng.admit(prompt[:4], 4) is None              # no slot left
+    assert pool.slots_allocated == 2 and pool.free_slots == 0
+    while len(eng.finished_slots()) < 2:
+        eng.decode_tick()
+    eng.retire(slot)
+    eng.retire(other)
+    assert pool.slots_allocated == pool.slots_freed == 2
+    assert pool.allocated == pool.freed
+
+
+def test_snapshot_restore_moves_a_mamba_request_between_engines():
+    """jamba: the request's pages (its attention layer) and state rows (its
+    Mamba layers) move mid-decode to another engine, which finishes it
+    token-identically."""
+    arch = "jamba_v0_1_52b"
+    cfg = get_smoke_config(arch)
+    prompt = np.random.default_rng(7).integers(1, cfg.vocab_size, 12) \
+        .astype(np.int32)
+    oracle = _arch_engine(arch).generate(prompt[None], 8)[0]
+    a = _arch_engine(arch)
+    a.start_paged(max_batch=2, page_size=8)
+    slot = a.admit(prompt, 8)
+    a.decode_tick()
+    a.decode_tick()
+    snap = a.snapshot_pages(slot)
+    n_m = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.num_layers))
+    assert snap["pages"]["ssm"].shape == (n_m, cfg.ssm.d_inner,
+                                          cfg.ssm.d_state)
+    assert snap["pages"]["k"].shape[:3] == (1, 4, 8)
+    b = _arch_engine(arch)
+    b.start_paged(max_batch=2, page_size=8)
+    b.admit(np.arange(1, 9, dtype=np.int32), 4)         # slot 0 taken first
+    slot_b = b.restore_pages(snap)
+    assert slot_b == 1
+    while slot_b not in b.finished_slots():
+        b.decode_tick()
+    np.testing.assert_array_equal(b.retire(slot_b), oracle)
 
 
 # ---------------------------------------------------------------------------
@@ -589,3 +700,34 @@ def test_launcher_runs_paged_fused_on_the_cpu_and_checks_the_oracle(tmp_path):
          "--fused-scheduler"],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode != 0 and "requires --paged" in proc.stderr
+
+
+def _launch(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         *args], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=300)
+
+
+def test_launcher_serves_jamba_paged_fused_through_the_oracle_check():
+    """The hybrid Mamba / attention / MoE model through the launcher, with
+    prompt lengths its Mamba layers can chunk (the random 8-47 cannot)."""
+    proc = _launch("--arch", "jamba-v0.1-52b", "--paged", "--fused-scheduler",
+                   "--requests", "4", "--new-tokens", "4",
+                   "--prompt-lens", "8,12,16,32")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout + proc.stderr
+    assert "request 0 verified token-identical to the dense oracle" in out
+    assert "fused in-tick" in out
+
+
+def test_launcher_refuses_falcon_mamba_prompts_it_cannot_chunk():
+    """The launcher's random prompts (8-47 tokens; the first has 42) do not
+    split into falcon-mamba's scan chunks: the run raises the reference's
+    prompt-length error instead of serving (ROADMAP queue 3)."""
+    proc = _launch("--arch", "falcon-mamba-7b", "--paged", "--requests", "2",
+                   "--new-tokens", "2")
+    assert proc.returncode != 0
+    assert ("a Mamba prefill of 42 tokens must be at most the scan chunk (4) "
+            "or a multiple of it") in proc.stderr
