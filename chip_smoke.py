@@ -71,10 +71,27 @@ the first disagreement:
   at four lanes.  Each model is freed before the next is built (the whole
   of jamba, ~103 GB, or deepseek-v2, ~471 GB, does not fit the card's 80
   GB).  arctic-480b is not run here: one of its layers alone holds 13.4 B
-  expert parameters (26.8 GB); the CPU tests cover it.
+  expert parameters (26.8 GB); the CPU tests cover it;
+* train — (a) the deepseek-7b, falcon-mamba-7b and jamba smoke configs in
+  float32, the same weights (from a numpy seed) on the card and on the
+  CPU: 3 steps of ``make_train_step`` at microbatches 1 and 2, the
+  losses, metrics and parameters on the card within 4x what one float32
+  rounding of the weights does on the CPU alone (a third CPU run measures
+  that spread); then the ``Trainer`` on the card fails at step 3, resumes
+  to step 6 and ends bitwise equal to a clean 6-step run (deterministic
+  algorithms on).  (b) deepseek-7b trained at its published widths and
+  depth (bf16, 6910365696 parameters), AdamW with int8 moments and
+  ``warmup_cosine(3e-3, 10, 4)``, remat on, ``TokenPipeline`` batches of
+  4 x 512 tokens, 4 steps: loss, ce and grad_norm finite at every step,
+  step 1's ce equal to a plain f32 cross-entropy of ``logits_fn`` within
+  2**-8 relative, every parameter moved, the optimizer at step 4; the
+  step time (median of steps 2-4), tokens/s, the model-FLOP share of 989
+  TFLOP/s (6·N·T, and 8·N·T with remat's extra forward) and the peak
+  memory beside the 41.5 GB reckoned resident are printed with the card's
+  name and power limit.  No kernel of the four is on this path.
 
 The fabric, runtime, queue-event, serving and the serve runs are the main
-path: the kernels' launch counters are zeroed just before each and read
+path of the four kernels: the kernels' launch counters are zeroed just before each and read
 just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
 and at the main path's one-event shapes (D = 256, 223 real slots in the
@@ -92,6 +109,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1160,6 +1178,291 @@ def phase_serve_cut(torch, K, arch: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the training path (card against CPU at smoke widths, then
+# deepseek-7b trained at full width)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE = ("deepseek_7b", "falcon_mamba_7b", "jamba_v0_1_52b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 16, 3, 1e-3
+# Card against CPU, both float32 from the same weights and batches: cuBLAS
+# and the card's exp / log / tanh round differently from the CPU's, and
+# Adam, which divides each entry's update by its own gradient scale, lets
+# a gradient within rounding of zero move its entry by up to ~lr a step on
+# one side and not the other.  So the bound is measured, not guessed: two
+# more runs on the CPU start from the weights times (1 +- 2**-24), one
+# float32 rounding (two draws of the signs), and the card may differ from
+# the CPU by at most ROUND_FACTOR times what such a rounding does on the
+# CPU alone: in the metrics, the largest gap relative to the metric's
+# largest value, over the metrics, steps and entries (plus ROUND_FACTOR
+# float32 ulps); in the parameters after the last step, the largest gap.
+ROUND_FACTOR = 4.0
+ROUNDINGS = 2
+FULL_ARCH, FULL_BATCH, FULL_SEQ, FULL_STEPS = "deepseek_7b", 4, 512, 4
+# step 1's ce from the train step against a plain f32 cross-entropy of
+# logits_fn's bf16 logits: the same bf16 logits, f32 reductions in another
+# order, so well inside one bf16 rounding (2**-8 relative)
+FULL_CE_RTOL = 2.0 ** -8
+
+
+def numpy_weights(torch, cfg, seed: int):
+    """The model on the CPU with every parameter drawn from
+    ``np.random.default_rng(seed)``: matrices N(0, 1/fan_in), the
+    embedding and head N(0, 0.02**2), 1-D leaves N(0, 0.1**2)."""
+    from repro_torch.models import init_params
+    model = init_params(cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            x = rng.standard_normal(tuple(p.shape))
+            if name in ("embed", "lm_head"):
+                x = 0.02 * x
+            elif p.dim() == 1:
+                x = 0.1 * x
+            else:
+                x = x / np.sqrt(p.shape[-2])
+            p.copy_(torch.from_numpy(x).to(p.dtype))
+    return model
+
+
+def rounded(torch, model, seed: int):
+    """A copy of ``model`` with every weight times (1 +- 2**-24), the sign
+    drawn from a generator seeded with ``seed``."""
+    import copy
+    out = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in out.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=g) * 2 - 1
+            p.mul_(1 + sign * 2.0 ** -24)
+    return out
+
+
+def train_card_vs_cpu(torch, arch: str, seed: int) -> dict:
+    """3 steps of ``make_train_step`` on the card and on the CPU from the
+    same float32 weights and batches, at microbatches 1 and 2, held within
+    ``ROUND_FACTOR`` times the CPU's own spread under one rounding of the
+    weights."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    cfg = get_smoke_config(arch)
+    base = numpy_weights(torch, cfg, seed)
+    starts = {"cpu": base, "card": base}
+    starts.update({f"round{i}": rounded(torch, base, seed + i)
+                   for i in range(ROUNDINGS)})
+    opt_cfg = AdamWConfig(learning_rate=TRAIN_LR, weight_decay=0.1)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=seed))
+    eps = float(np.finfo(np.float32).eps)
+    out = {}
+    for micro in (1, 2):
+        step = make_train_step(cfg, opt_cfg, microbatches=micro)
+        runs = {}
+        for run, start in starts.items():
+            params = copy.deepcopy(start).to(DEVICE if run == "card"
+                                             else "cpu")
+            opt = init_opt_state(dict(params.named_parameters()), opt_cfg)
+            hist = []
+            for s in range(TRAIN_STEPS):
+                params, opt, res, met = step(params, opt, None,
+                                             pipe.batch_at(s))
+                require(res is None, "the residual did not pass through")
+                hist.append({k: v.cpu() for k, v in met.items()})
+            require(int(opt["step"]) == TRAIN_STEPS, f"{arch}: optimizer step")
+            runs[run] = ({n: p.detach().cpu()
+                          for n, p in params.named_parameters()}, hist)
+        pc, hc = runs.pop("cpu")
+        pg, hg = runs.pop("card")
+        require(all(sorted(h[s]) == sorted(hc[s]) for h in
+                    [hg] + [h for _, h in runs.values()]
+                    for s in range(TRAIN_STEPS)),
+                f"{arch}: metric names differ {sorted(hc[0])}")
+
+        def rel_gap(h):
+            """max over metrics of max |h - CPU| / max |CPU|"""
+            out = 0.0
+            for k in hc[0]:
+                a, c = (torch.stack([x[s][k] for s in range(TRAIN_STEPS)])
+                        for x in (h, hc))
+                require(bool(torch.isfinite(a).all()),
+                        f"{arch}: {k} not finite")
+                out = max(out, float((a - c).abs().max()
+                                     / c.abs().max().clamp_min(1e-30)))
+            return out
+
+        met_err = rel_gap(hg)
+        met_floor = max(rel_gap(h) for _, h in runs.values())
+        require(met_err <= ROUND_FACTOR * (met_floor + eps),
+                f"{arch} microbatches={micro}: metrics differ by {met_err} "
+                f"relative, one rounding by {met_floor}: card "
+                f"{[{k: v.tolist() for k, v in h.items()} for h in hg]} CPU "
+                f"{[{k: v.tolist() for k, v in h.items()} for h in hc]}")
+        p_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+        p_floor = max(float((pr[n] - pc[n]).abs().max())
+                      for pr, _ in runs.values() for n in pc)
+        require(p_err <= ROUND_FACTOR * p_floor,
+                f"{arch} microbatches={micro}: parameters differ by {p_err}, "
+                f"one rounding moves them by {p_floor}")
+        out[f"microbatches_{micro}"] = {
+            "loss": [float(h["loss"]) for h in hg],
+            "metrics_max_rel_err": met_err, "metrics_round_floor": met_floor,
+            "params_max_abs_err": p_err, "params_round_floor": p_floor}
+        log(f"[train] {cfg.name} microbatches={micro}: {TRAIN_STEPS} steps, "
+            f"loss {out[f'microbatches_{micro}']['loss']}; card vs CPU: "
+            f"metrics {met_err:.3e} relative (one rounding on the CPU: "
+            f"{met_floor:.3e}), parameters {p_err:.3e} (one rounding: "
+            f"{p_floor:.3e}; bound {ROUND_FACTOR:g}x)")
+    return out
+
+
+def train_restart(torch, arch: str, seed: int) -> dict:
+    """The ``Trainer`` on the card fails at step 3, resumes to step 6, and
+    ends bitwise equal to a clean 6-step run (deterministic algorithms: the
+    embedding's scatter-add and cuBLAS in their deterministic modes)."""
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(arch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def trainer(sub):
+                return Trainer(
+                    cfg, AdamWConfig(learning_rate=3e-3),
+                    DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=seed),
+                    TrainerConfig(total_steps=6, checkpoint_every=3,
+                                  checkpoint_dir=f"{tmp}/{sub}", log_every=1,
+                                  seed=seed),
+                    device=DEVICE)
+            try:
+                trainer("a").run(inject_failure_at=3)
+                require(False, f"{arch}: the injected failure did not fire")
+            except RuntimeError as e:
+                require("injected failure at step 3" in str(e), str(e))
+            resumed, _, h_res = trainer("a").run()
+            clean, _, h_clean = trainer("b").run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (name, a), b in zip(resumed.named_parameters(), clean.parameters()):
+        require(bits_equal(a, b), f"{arch}: restart differs at {name} by "
+                                  f"{max_abs_err(a, b)}")
+    require(h_res == h_clean[3:], f"{arch}: resumed losses {h_res} against "
+                                  f"{h_clean[3:]}")
+    log(f"[train] {cfg.name}: Trainer failed at step 3, resumed to 6: "
+        f"parameters and losses bitwise a clean run ({h_clean})")
+    return {"losses": [l for _, l in h_clean], "bitwise": True}
+
+
+def train_full_width(torch, seed: int, card: str) -> dict:
+    """deepseek-7b at its published widths and depth, bf16, int8 moments:
+    ``FULL_STEPS`` steps of ``make_train_step`` on ``TokenPipeline``
+    batches of 4 x 512 tokens, remat on."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, logits_fn, model_flops
+    from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.train import make_train_step
+    import torch.nn.functional as F
+
+    cfg = get_config(FULL_ARCH)
+    check_widths(cfg, FULL_ARCH)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, out = build_model(torch, cfg, seed, "train")
+    params.requires_grad_(True)
+    opt_cfg = AdamWConfig(moment_dtype="int8", weight_decay=0.1,
+                          learning_rate=warmup_cosine(3e-3, 10, FULL_STEPS))
+    opt = init_opt_state(dict(params.named_parameters()), opt_cfg)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=FULL_SEQ, global_batch=FULL_BATCH,
+                                    seed=seed))
+    step = make_train_step(cfg, opt_cfg)
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in params.named_parameters()}
+
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in pipe.batch_at(0).items()}
+    with torch.no_grad():
+        logits, _ = logits_fn(params, batch["tokens"], cfg)
+        plain_ce = float(F.cross_entropy(
+            logits.to(torch.float32).reshape(-1, cfg.vocab_size),
+            batch["labels"].reshape(-1).long()))
+        del logits
+    steps = []
+    for s in range(FULL_STEPS):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in pipe.batch_at(s).items()}
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, met = step(params, opt, None, batch)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {k: float(met[k]) for k in ("loss", "ce", "grad_norm", "lr")}
+        rec["s"] = dt
+        for k in ("loss", "ce", "grad_norm"):
+            require(np.isfinite(rec[k]), f"[train] step {s + 1}: {k} = "
+                                         f"{rec[k]}")
+        steps.append(rec)
+        log(f"[train] {cfg.name} step {s + 1}: loss {rec['loss']:.6f} ce "
+            f"{rec['ce']:.6f} grad_norm {rec['grad_norm']:.6f} lr "
+            f"{rec['lr']:.3e}, {dt:.6f} s")
+    require(abs(steps[0]["ce"] - plain_ce) <= FULL_CE_RTOL * plain_ce,
+            f"[train] step 1 ce {steps[0]['ce']} against a plain f32 "
+            f"cross-entropy of logits_fn {plain_ce}")
+    still = [n for n, p in params.named_parameters()
+             if torch.equal(p.detach().cpu(), before[n])]
+    require(not still, f"[train] parameters that never moved: {still[:8]}")
+    require(int(opt["step"]) == FULL_STEPS, "[train] optimizer step")
+    peak = (torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0)
+    step_s = float(np.median([r["s"] for r in steps[1:]]))
+    tokens = FULL_BATCH * FULL_SEQ
+    flops = model_flops(cfg, tokens, train=True)
+    out.update({
+        "card": card, "batch": FULL_BATCH, "seq": FULL_SEQ,
+        "moment_dtype": "int8", "steps": steps, "plain_ce": plain_ce,
+        "step_s_median_2_4": step_s, "tokens_per_s": tokens / step_s,
+        "model_flops_6NT": flops, "flops_with_remat_8NT": flops * 8 / 6,
+        "mfu_6NT": flops / step_s / BF16_OPS_PER_S,
+        "hw_flops_share_8NT": flops * 8 / 6 / step_s / BF16_OPS_PER_S,
+        "peak_bytes": peak, "reckoned_resident_bytes": 41.5e9})
+    log(f"[train] {card} | {cfg.name} {cfg.num_layers} layers, "
+        f"{cfg.param_count()} parameters, batch {FULL_BATCH} x {FULL_SEQ}, "
+        f"int8 moments: step {step_s:.6f} s (median of steps 2-"
+        f"{FULL_STEPS}), {out['tokens_per_s']:.3f} tokens/s, model FLOPs "
+        f"6NT {flops:.6e} = {100 * out['mfu_6NT']:.4f}% of 989 TFLOP/s bf16 "
+        f"({100 * out['hw_flops_share_8NT']:.4f}% counting remat's extra "
+        f"forward, 8NT); peak memory {peak} bytes against the 41.5e9 "
+        f"reckoned resident (params + grads + int8 moments); step 1 ce "
+        f"{steps[0]['ce']:.6f} against plain {plain_ce:.6f}")
+    return out
+
+
+def phase_train(torch, K, seed: int, card: str) -> dict:
+    """The training path: (a) deepseek-7b, falcon-mamba-7b and jamba smoke
+    configs, card against CPU and a Trainer restart; (b) deepseek-7b
+    trained at full width."""
+    K.reset_launch_counts()
+    out = {"card_vs_cpu": {}, "restart": {}}
+    for arch in TRAIN_SMOKE:
+        out["card_vs_cpu"][arch] = train_card_vs_cpu(torch, arch, seed)
+        out["restart"][arch] = train_restart(torch, arch, seed)
+    free_card(torch)
+    out["full_width"] = train_full_width(torch, seed, card)
+    out["launches"] = K.launch_counts()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1167,6 +1470,9 @@ def main() -> int:
     ap.add_argument("--out", help="also write the measurements to FILE (JSON)")
     args = ap.parse_args()
 
+    # cuBLAS's deterministic mode (the train phase's restart check) needs
+    # this before the first GEMM
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1262,6 +1568,13 @@ def main() -> int:
         free_card(torch)
 
     t0 = time.perf_counter()
+    train = phase_train(torch, K, args.seed, card)
+    walls["train"] = time.perf_counter() - t0
+    log(f"[train] launches of the four kernels {train['launches']}, wall "
+        f"{walls['train']:.3f} s")
+    free_card(torch)
+
+    t0 = time.perf_counter()
     timing = phase_timing(torch, args.seed)
     walls["timing"] = time.perf_counter() - t0
     log(f"[timing] wall {walls['timing']:.3f} s")
@@ -1298,6 +1611,7 @@ def main() -> int:
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
             "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
+            "train": train,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
     log(card)

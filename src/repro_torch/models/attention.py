@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of, param,
@@ -75,6 +76,39 @@ def _qk_chunk_scores(qc_, kc_, scale, cap):
     return softcap(s, cap) if cap is not None else s
 
 
+def _q_block(qblk, k, v, i: int, *, qc: int, kc: int, scale: float,
+             attn_cap: float | None, window: int | None) -> torch.Tensor:
+    """Query block ``i`` (B,qc,KV,G,d) against its reachable key chunks →
+    (B,qc,KV,G,dv)."""
+    B, _, KV, G, _ = qblk.shape
+    dv = v.shape[-1]
+    dev = qblk.device
+    qpos = i * qc + torch.arange(qc, device=dev)
+    m = torch.full((B, KV, G, qc), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, qc, dv), dtype=torch.float32, device=dev)
+    lo = 0 if window is None else max(0, (i * qc - window) // kc)
+    hi = ((i + 1) * qc + kc - 1) // kc
+    for j in range(lo, hi):
+        kblk = k[:, j * kc:(j + 1) * kc]
+        vblk = v[:, j * kc:(j + 1) * kc]
+        s = _qk_chunk_scores(qblk, kblk, scale, attn_cap)      # (B,KV,G,qc,kc)
+        kpos = j * kc + torch.arange(kc, device=dev)
+        mask = kpos[None, :] <= qpos[:, None]                  # causal
+        if window is not None:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))               # (B,KV,G,qc)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bngqk,bknd->bngqd", p, vblk.to(torch.float32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]           # (B,KV,G,qc,dv)
+    return out.permute(0, 3, 1, 2, 4)                          # (B,qc,KV,G,dv)
+
+
 def chunked_causal_attention(
     q: torch.Tensor,            # (B, S, H, d)
     k: torch.Tensor,            # (B, S, KV, d)
@@ -85,10 +119,21 @@ def chunked_causal_attention(
     window: int | None,         # None → global causal
     q_chunk: int = 512,
     kv_chunk: int = 512,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Online-softmax chunked attention with decoupled q/kv chunk sizes; only
     the causally reachable key chunks (and, with a window, only those inside
-    it) are touched."""
+    it) are touched.
+
+    The loop is differentiable as it stands.  The reference's
+    ``differentiable=True`` sweeps every key chunk of a global layer under
+    the mask instead (its reachable-only loop has a dynamic bound that does
+    not reverse-differentiate); a fully masked chunk adds exactly zero to
+    the online softmax, so both compute the same function.  What the port
+    keeps of that flag is the reference's per-q-block remat: with it, and
+    gradients on, each q block is recomputed in the backward
+    (``torch.utils.checkpoint``), so the backward holds one block row of
+    probabilities at a time."""
     B, S, H, d = q.shape
     KV = k.shape[2]
     dv = v.shape[-1]
@@ -98,35 +143,16 @@ def chunked_causal_attention(
     if S % qc or S % kc:
         raise ValueError(f"sequence length {S} must be a multiple of the "
                          f"chunks ({qc}, {kc})")
-    dev = q.device
     qs = q.reshape(B, S // qc, qc, KV, G, d)
+    remat = differentiable and torch.is_grad_enabled()
+    kw = dict(qc=qc, kc=kc, scale=scale, attn_cap=attn_cap, window=window)
     outs = []
     for i in range(S // qc):
-        qblk = qs[:, i]                                        # (B,qc,KV,G,d)
-        qpos = i * qc + torch.arange(qc, device=dev)
-        m = torch.full((B, KV, G, qc), NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, KV, G, qc, dv), dtype=torch.float32, device=dev)
-        lo = 0 if window is None else max(0, (i * qc - window) // kc)
-        hi = ((i + 1) * qc + kc - 1) // kc
-        for j in range(lo, hi):
-            kblk = k[:, j * kc:(j + 1) * kc]
-            vblk = v[:, j * kc:(j + 1) * kc]
-            s = _qk_chunk_scores(qblk, kblk, scale, attn_cap)  # (B,KV,G,qc,kc)
-            kpos = j * kc + torch.arange(kc, device=dev)
-            mask = kpos[None, :] <= qpos[:, None]              # causal
-            if window is not None:
-                mask &= (qpos[:, None] - kpos[None, :]) < window
-            s = torch.where(mask, s, NEG)
-            m_new = torch.maximum(m, s.amax(dim=-1))           # (B,KV,G,qc)
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bngqk,bknd->bngqd", p, vblk.to(torch.float32))
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (B,KV,G,qc,dv)
-        outs.append(out.permute(0, 3, 1, 2, 4))                # (B,qc,KV,G,dv)
+        if remat:
+            outs.append(checkpoint(_q_block, qs[:, i], k, v, i,
+                                   use_reentrant=False, **kw))
+        else:
+            outs.append(_q_block(qs[:, i], k, v, i, **kw))
     out = torch.cat(outs, dim=1).reshape(B, S, H, dv)
     return out.to(q.dtype)
 
@@ -180,6 +206,7 @@ def gqa_block(
     positions: torch.Tensor,      # (S,) or (B, 1)
     cache: dict | None = None,    # {'k': (B,Smax,KV,d), 'v': ...}, in place
     decode_pos=None,
+    differentiable: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -204,7 +231,8 @@ def gqa_block(
     else:
         out = chunked_causal_attention(q, k, v, scale=scale,
                                        attn_cap=cfg.attn_softcap,
-                                       window=window)
+                                       window=window,
+                                       differentiable=differentiable)
         if cache is not None:     # prefill: fill the cache's first S slots
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
@@ -277,6 +305,7 @@ def mla_block(
     positions: torch.Tensor,      # (S,) or (B, 1)
     cache: dict | None = None,    # {'ckv': (B,Smax,R), 'kr': (B,Smax,rope)}
     decode_pos=None,
+    differentiable: bool = False,
     **_unused,
 ) -> tuple[torch.Tensor, dict | None]:
     B, S, _ = x.shape
@@ -317,7 +346,8 @@ def mla_block(
                       dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = chunked_causal_attention(q, k, v, scale=scale, attn_cap=None,
-                                       window=None)
+                                       window=None,
+                                       differentiable=differentiable)
         if cache is not None:     # prefill: fill the cache's first S slots
             cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
             cache["kr"][:, :S] = kr.to(cache["kr"].dtype)

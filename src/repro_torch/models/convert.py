@@ -7,6 +7,12 @@ empty but for DeepSeek-V2) and ``stages``, whose leaves carry a leading
 ``i`` of the port is ``first[i]`` for ``i < first_dense_layers``, and layer
 ``first_dense_layers + s * period + j`` is slot ``j`` of stage ``s``, so both
 packages compute the same function from the same numbers.
+
+The reference's optimizer state (``repro.optim.init_opt_state``) has the
+same tree twice, ``m`` and ``v``, whose int8 leaves are ``{"q", "scale"}``
+dicts, and an int32 ``step``; ``opt_state_from_reference`` carries it onto
+the port's parameter names the same way, so a run the reference saved can
+be continued in the port.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Transformer, param_specs
+from repro_torch.optim.adamw import _load_moment
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -28,11 +35,24 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
     return out
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (an ``ml_dtypes`` dtype,
+    as ``np.asarray`` of a jax array gives it) keeps its bits."""
+    arr = np.asarray(arr)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = arr.copy()           # jax arrays come back read-only
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _reference_state(cfg: ModelConfig, tree: dict) -> dict:
     """The reference tree (nested dicts and lists of numpy arrays) as the
     port's ``state_dict``: parameter name → numpy array."""
-    out = {k: np.asarray(tree[k]) for k in ("embed", "final_norm", "lm_head")
-           if k in tree}
+    out: dict = {}
+    for k in ("embed", "final_norm", "lm_head"):
+        if k in tree:
+            _flatten(tree[k], f"{k}.", out)
     first = tree.get("first") or []
     if isinstance(first, dict):         # list levels through an .npz
         first = [first[k] for k in sorted(first, key=int)]
@@ -68,10 +88,48 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *,
     model = model.to_empty(device=resolve_device(device))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            src = torch.from_numpy(np.ascontiguousarray(state[name]))
+            src = _tensor(state[name])
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(f"{name}: reference {tuple(src.shape)} "
                                  f"{src.dtype}, port {tuple(p.shape)} "
                                  f"{p.dtype}")
             p.copy_(src)
     return model
+
+
+def opt_state_from_reference(cfg: ModelConfig, state: dict, *,
+                             device=None) -> dict:
+    """The reference's AdamW state (``{"step", "m", "v"}`` over its
+    parameter tree) as the port's (``repro_torch.optim``: the same keys
+    over the port's parameter names), on ``device`` (the card unless told
+    otherwise).  int8 leaves keep their ``{"q", "scale"}`` form, except
+    where the port's leaf is 1-D: the reference stacks a stage's 1-D leaves
+    (norms, Mamba's vectors) over the stages and so stores their moments in
+    int8, while the port keeps 1-D moments in f32, so those are
+    dequantized (ROADMAP queue 3).  Raises unless ``m`` and ``v`` each hold
+    exactly the port's parameter names."""
+    dev = resolve_device(device)
+    specs = dict(param_specs(cfg).named_parameters())
+
+    def moments(tree, transform: bool):
+        out: dict = {}
+        for key, arr in _reference_state(cfg, tree).items():
+            base, _, leaf = key.rpartition(".")
+            if key not in specs and base in specs and leaf in ("q", "scale"):
+                out.setdefault(base, {})[leaf] = _tensor(arr)
+            else:
+                out[key] = _tensor(arr)
+        if set(out) != set(specs):
+            raise ValueError(f"moment names differ: port only "
+                             f"{sorted(set(specs) - set(out))}, reference "
+                             f"only {sorted(set(out) - set(specs))}")
+        for name, m in out.items():
+            if isinstance(m, dict) and specs[name].dim() < 2:
+                out[name] = _load_moment(m, transform)
+        return {name: ({k: v.to(dev) for k, v in m.items()}
+                       if isinstance(m, dict) else m.to(dev))
+                for name, m in out.items()}
+
+    step = torch.as_tensor(np.asarray(state["step"]), dtype=torch.int32)
+    return {"step": step.to(dev), "m": moments(state["m"], False),
+            "v": moments(state["v"], True)}

@@ -21,8 +21,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A model parameter.  Serving only: no gradient (training comes with
-    its own slice)."""
+    """A model parameter, made without a gradient so serving builds no
+    graphs; the trainer turns gradients on for its own model
+    (``requires_grad_(True)``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

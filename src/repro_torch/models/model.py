@@ -1,4 +1,4 @@
-"""Model entry points: init, forward, prefill, decode.
+"""Model entry points: init, forward, loss, prefill, decode.
 
 Counterpart of ``repro.models.model``.  The parameters are one
 :class:`Transformer` module: ``embed``, ``final_norm`` (f32), ``lm_head``
@@ -12,12 +12,25 @@ d_inner, N)`` in f32; the steps write them in place.
 Entry points take the parameters first, as the reference's do; the module's
 own ``forward`` is the same function.  ``init_params`` runs on the card
 unless the caller names another device.
+
+The parameters are made without gradients (``layers.param``), so serving
+builds no graphs; a trainer turns them on for its own model.  ``loss_fn``
+is the training objective: the chunked cross-entropy plus the MoE layers'
+auxiliary and z losses.  The reference's ``_embed_lookup`` custom VJP only
+keeps the embedding gradient sharded; the lookup here is ``F.embedding``,
+whose backward, a scatter-add of the cotangent into the embedding's rows,
+is the same function.  (Indexing, ``embed[tokens]``, computes the same
+forward, but its backward's CPU scatter-add sums duplicate tokens in an
+order that varies from run to run above a few hundred tokens, which would
+break the trainer's bitwise restart.)
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -82,7 +95,7 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params: Transformer, tokens, cfg: ModelConfig):
-    x = params.embed[tokens]
+    x = F.embedding(tokens, params.embed)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x.to(dtype_of(cfg.compute_dtype))
@@ -94,10 +107,14 @@ def _unembed(params: Transformer, x, cfg: ModelConfig):
 
 
 def forward(params: Transformer, tokens, cfg: ModelConfig, *, caches=None,
-            decode_pos=None):
+            decode_pos=None, remat: bool = True,
+            differentiable: bool = False):
     """tokens (B,S) → (hidden (B,S,D), caches, metrics).  ``metrics`` holds
     the MoE layers' ``aux_loss`` / ``z_loss`` / ``expert_load`` summed over
-    the layers, and is empty without MoE layers."""
+    the layers, and is empty without MoE layers.  ``remat`` recomputes each
+    layer in the backward, ``differentiable`` each attention q block (both
+    only with gradients on; see ``apply_stack`` and
+    ``chunked_causal_attention``)."""
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     if decode_pos is None:
@@ -109,14 +126,62 @@ def forward(params: Transformer, tokens, cfg: ModelConfig, *, caches=None,
         positions = pos.expand(S) if pos.dim() == 0 else pos[:, None]
     x, caches, metrics = apply_stack(params.layers, x, cfg,
                                      positions=positions, caches=caches,
-                                     decode_pos=decode_pos)
+                                     decode_pos=decode_pos, remat=remat,
+                                     differentiable=differentiable)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, caches, metrics
 
 
-def logits_fn(params: Transformer, tokens, cfg: ModelConfig):
-    x, _, metrics = forward(params, tokens, cfg)
+def logits_fn(params: Transformer, tokens, cfg: ModelConfig,
+              remat: bool = True):
+    x, _, metrics = forward(params, tokens, cfg, remat=remat)
     return _unembed(params, x, cfg), metrics
+
+
+def _ce_chunk(params: Transformer, hc, yc, cfg: ModelConfig) -> torch.Tensor:
+    """Σ (logsumexp - gold) over one chunk, on f32 logits."""
+    logits = _unembed(params, hc, cfg).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_cross_entropy(params: Transformer, hidden, labels,
+                          cfg: ModelConfig, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token CE without materializing (B,S,V) f32 logits: the
+    sequence goes in chunks of ``chunk`` positions, each chunk's f32 logits
+    are reduced at once, and with gradients on each chunk is recomputed in
+    the backward (``torch.utils.checkpoint``), so one chunk of logits is
+    alive at a time."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} must be a multiple of the "
+                         f"cross-entropy chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk, params, hidden[:, sl], labels[:, sl],
+                              cfg, use_reentrant=False)
+        else:
+            part = _ce_chunk(params, hidden[:, sl], labels[:, sl], cfg)
+        total = total + part
+    return total / (B * S)
+
+
+def loss_fn(params: Transformer, tokens, labels, cfg: ModelConfig,
+            remat: bool = True):
+    """``(loss, metrics)``: loss = ce + aux_loss + z_loss (the MoE terms
+    where there are MoE layers); metrics = ``{ce, aux_loss, z_loss,
+    expert_load}`` (just ``ce`` without MoE layers)."""
+    hidden, _, metrics = forward(params, tokens, cfg, remat=remat,
+                                 differentiable=True)
+    ce = chunked_cross_entropy(params, hidden, labels, cfg)
+    loss = ce
+    if metrics:
+        loss = loss + metrics["aux_loss"] + metrics["z_loss"]
+    return loss, {"ce": ce, **metrics}
 
 
 # ---------------------------------------------------------------------------

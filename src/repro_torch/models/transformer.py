@@ -5,9 +5,14 @@ stage's parameters on a leading axis and runs the stack as one ``lax.scan``;
 here the layers are an ``nn.ModuleList`` in layer order and the stack is a
 loop: first the leading dense layers (DeepSeek-V2's
 ``first_dense_layers``), then the stages, layer ``first_dense_layers + s *
-period + j`` being slot ``j`` of stage ``s``.  The reference's
-``_residual_barrier`` is an autodiff device for training and has no
-counterpart here.
+period + j`` being slot ``j`` of stage ``s``.
+
+With ``remat`` (training), each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint(stage_body,
+nothing_saveable)`` recomputes each stage: the backward keeps one layer's
+input a layer.  The reference's ``_residual_barrier`` keeps XLA from
+hoisting f32 converts into its scan's saved residuals; eager PyTorch saves
+what the layer returns, so it has no counterpart here.
 
 Each slot has a mixer kind (``attn``: GQA or MLA; ``mamba``), a window kind
 and an FFN kind (``dense``, ``moe``, or ``none`` for Falcon-Mamba's
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -145,6 +151,7 @@ def apply_sublayer(
     positions,
     cache: dict | None,
     decode_pos,
+    differentiable: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Pre-norm residual block: x + mixer(norm(x)); x + ffn(norm(x)).
     Returns ``(x, metrics)``; only an MoE FFN reports metrics."""
@@ -155,7 +162,8 @@ def apply_sublayer(
         block = (attn_mod.mla_block if cfg.attn_type == "mla"
                  else attn_mod.gqa_block)
         h, _ = block(params.mixer, h, cfg, window=window, positions=positions,
-                     cache=cache, decode_pos=decode_pos)
+                     cache=cache, decode_pos=decode_pos,
+                     differentiable=differentiable)
     else:
         h, _ = mamba_mod.mamba_block(params.mixer, h, cfg, cache=cache,
                                      decode_pos=decode_pos)
@@ -182,11 +190,15 @@ def apply_stack(
     positions,
     caches: dict | None = None,  # {leaf: (L_kind, B, ...)}, see the docstring
     decode_pos=None,
+    remat: bool = True,
+    differentiable: bool = False,
 ) -> tuple[torch.Tensor, dict | None, dict]:
     """Run every layer; a layer reads and writes its rows of ``caches`` in
     place.  Returns ``(x, caches, metrics)``: with MoE layers in the stages,
     ``aux_loss`` / ``z_loss`` / ``expert_load`` summed over them in layer
-    order, as the reference's scan does; else empty."""
+    order, as the reference's scan does; else empty.  ``remat`` recomputes
+    each layer in the backward; it applies only with gradients on and no
+    caches (a recompute would write a cache twice)."""
     plan = layer_plan(cfg)
     agg: dict = {}
     if cfg.moe is not None and any(s["moe"] for s in plan):
@@ -203,8 +215,13 @@ def apply_stack(
             names = (MAMBA_LEAVES if slot["kind"] == "mamba"
                      else attn_leaves(cfg))
             c = {name: caches[name][slot["cache"]] for name in names}
-        x, met = apply_sublayer(layer, x, cfg, slot, positions=positions,
-                                cache=c, decode_pos=decode_pos)
+        kw = dict(positions=positions, cache=c, decode_pos=decode_pos,
+                  differentiable=differentiable)
+        if remat and caches is None and torch.is_grad_enabled():
+            x, met = checkpoint(apply_sublayer, layer, x, cfg, slot,
+                                use_reentrant=False, **kw)
+        else:
+            x, met = apply_sublayer(layer, x, cfg, slot, **kw)
         for k, v in met.items():
             agg[k] = agg[k] + v
     return x, caches, agg
