@@ -88,10 +88,38 @@ the first disagreement:
   step time (median of steps 2-4), tokens/s, the model-FLOP share of 989
   TFLOP/s (6·N·T, and 8·N·T with remat's extra forward) and the peak
   memory beside the 41.5 GB reckoned resident are printed with the card's
-  name and power limit.  No kernel of the four is on this path.
+  name and power limit.  No kernel of the four is on this path;
+* dist-serve (right after serve, on its weights) — deepseek-7b at full
+  width served by one ``(1, 1)`` mesh-backed replica
+  (``mesh_backed_fleet`` over an ``nccl`` world of this one process; its
+  parameters, caches and pools ``DTensor``s, every step under its hint
+  policy) and two meshless replicas on the same weights, behind
+  ``run_continuous(fused=True)`` on a fused ``MappingFabric(3)``: 8
+  requests of 8-47 tokens, 16 new tokens, four lanes.  Every request
+  bitwise the dense meshless ``generate``, every in-tick decision bitwise
+  ``decision_ref``, ``fused_decision`` launched inside the meshed
+  replica's ticks, pages allocated == freed, the parameters ``DTensor``s
+  on the mesh, and a ``reshard(None)`` and back to ``(1, 1)`` in
+  mid-generation bitwise.  The meshed tick is timed beside the meshless
+  one, with each tick's dispatched aten ops and DTensor redistributions;
+* dist-train (after train) — two spawned processes on the one card over a
+  ``gloo`` group as two pods (NCCL refuses two ranks on one card; gloo
+  runs all_reduce and broadcast on its tensors through the host):
+  deepseek-7b at its published widths cut to 4 of 30 layers, bf16, int8
+  moments, remat, ``TokenPipeline`` batches of 4 x 512 split over the
+  pods, two steps each of the exact and the int8 error-feedback pod step.
+  The reductions are held on each rank's real gradients of its half of
+  the first batch: ``psum_mean`` within one bf16 rounding of the exact
+  mean of the two ranks' gradients, ``compressed_psum_mean`` within half an
+  int8 step of the group absmax (plus its bf16 rounding), and that mean
+  within 4x the spread one bf16 rounding of the weights causes in the
+  whole-batch gradient, leaf by leaf.  Both ranks' parameters bitwise
+  equal after every step; the residual finite and non-zero; a smoke-width
+  ``Trainer``'s residual saved at pod 2 and restored here at pod 1 keeps
+  Σe/n.  Step times and the reductions' alone are printed.
 
-The fabric, runtime, queue-event, serving and the serve runs are the main
-path of the four kernels: the kernels' launch counters are zeroed just before each and read
+The fabric, runtime, queue-event, serving, the serve runs and dist-serve
+are the main path of the four kernels: the kernels' launch counters are zeroed just before each and read
 just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
 and at the main path's one-event shapes (D = 256, 223 real slots in the
@@ -107,8 +135,10 @@ sources next to it, or on any failure.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -1115,10 +1145,11 @@ def run_served(torch, K, cfg, params, requests, tag: str):
     return record, fleet, fab
 
 
-def phase_serve(torch, K, seed: int) -> dict:
+def phase_serve(torch, K, seed: int):
     """deepseek-7b at its published widths and depth, bf16, random weights
     from a seeded generator, served by three replicas through the port's
-    ``HeftFrontEnd.run_continuous(fused=True)`` on a fused fabric."""
+    ``HeftFrontEnd.run_continuous(fused=True)`` on a fused fabric.  Returns
+    the record and the weights (the dist-serve phase reuses them)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(SERVE_ARCH)
@@ -1132,7 +1163,7 @@ def phase_serve(torch, K, seed: int) -> dict:
                         prefill_len=47)
     out["timing"] = t
     log_tick("serve", t)
-    return out
+    return out, params
 
 
 def phase_serve_mamba(torch, K, seed: int) -> dict:
@@ -1175,6 +1206,588 @@ def phase_serve_cut(torch, K, arch: str, seed: int) -> dict:
     record, _, _ = run_served(torch, K, cfg, params, requests, arch)
     out.update(record)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase: dist-serve (a mesh-backed replica at full width, world size 1)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_redistributions():
+    """Counts the calls of DTensor's ``redistribute_local_tensor`` (each
+    placement change of an operand) while the block runs; yields a list
+    whose one entry is the count."""
+    import torch.distributed.tensor._api as api
+    import torch.distributed.tensor._dispatch as dsp
+    import torch.distributed.tensor._redistribute as red
+
+    n = [0]
+    orig = red.redistribute_local_tensor
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+
+    mods = [m for m in (api, dsp, red)
+            if getattr(m, "redistribute_local_tensor", None) is orig]
+    for m in mods:
+        m.redistribute_local_tensor = counted
+    try:
+        yield n
+    finally:
+        for m in mods:
+            m.redistribute_local_tensor = orig
+
+
+def count_dispatch(torch, fn) -> tuple[int, int]:
+    """(aten ops dispatched, DTensor redistributions) while ``fn`` runs: a
+    ``TorchDispatchMode`` counts the ops (on a ``DTensor`` the op itself,
+    not the local ops it becomes), :func:`counted_redistributions` the
+    placement changes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with counted_redistributions() as redist, Count():
+        fn()
+    return ops[0], redist[0]
+
+
+def time_mesh_ticks(torch, engines: dict, fab, rng, cfg) -> dict:
+    """Each engine (by tag) filled to its lanes with 32-token prompts, then
+    its decode tick timed with CUDA events (10 ticks, plain and carrying a
+    decision) and one tick's aten ops and DTensor redistributions
+    counted."""
+    out = {}
+    for tag, eng in engines.items():
+        for _ in range(eng.lanes):
+            prompt = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+            require(eng.admit(prompt, 64) is not None,
+                    f"dist-serve timing: {tag} refused an admission")
+        for _ in range(2):
+            eng.decode_tick()
+        tick_ms = cuda_time_ms(torch, eng.decode_tick, iters=10, warmup=0)
+        avg = rng.integers(1, 8, eng.lanes).astype(np.float64)
+        ex = rng.integers(1, 64, (eng.lanes, fab.num_pes)).astype(np.float64)
+        fused_ms = cuda_time_ms(torch, lambda: eng.decode_tick((avg, ex, fab)),
+                                iters=10, warmup=0)
+        ops, redist = count_dispatch(torch, eng.decode_tick)
+        out[tag] = {"lanes": eng.lanes, "tick_ms": tick_ms,
+                    "fused_tick_ms": fused_ms, "aten_ops_per_tick": ops,
+                    "redistributions_per_tick": redist}
+    return out
+
+
+def phase_dist_serve(torch, K, cfg, params, seed: int, card: str) -> dict:
+    """deepseek-7b at full width served by a (1, 1) mesh-backed replica
+    (``mesh_backed_fleet`` over an ``nccl`` world of one process) and two
+    meshless replicas on the same weights, behind ``HeftFrontEnd
+    .run_continuous(fused=True)`` on ``MappingFabric(3, backend="fused")``:
+    8 requests of 8-47 tokens, 16 new tokens, four lanes.  Checks: every
+    request bitwise the dense meshless ``generate``, every in-tick decision
+    bitwise ``decision_ref``, ``fused_decision`` launched inside the meshed
+    replica's ticks, pages allocated == freed, the replica's parameters
+    ``DTensor``s on its mesh, and a ``reshard(None)`` and back to (1, 1) in
+    mid-generation leaving the tokens bitwise unchanged.  Then the meshed
+    tick is timed beside the meshless one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.sched_integration import MappingFabric
+    from repro_torch.serve import (HeftFrontEnd, ReplicaHandle, ServeEngine,
+                                   mesh_backed_fleet)
+
+    rank, world = init_world("nccl" if DEVICE == "cuda" else "gloo",
+                             device=DEVICE)
+    require(world == 1, f"dist-serve runs at world size 1, got {world}")
+    meshed = mesh_backed_fleet(cfg, params, [(1, 1)], max_len=SERVE_MAX_LEN,
+                               lanes=SERVE_MAX_BATCH, device=DEVICE)[0]
+    eng = meshed.engine
+    require(all(isinstance(p, DTensor) and p.device_mesh is eng.mesh
+                for p in eng.params.parameters()),
+            "dist-serve: the replica's parameters are not DTensors on its "
+            "mesh")
+    fleet = [meshed] + [
+        ReplicaHandle(f"replica{i}(x{s})",
+                      ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                  lanes=SERVE_MAX_BATCH), speed=s)
+        for i, s in enumerate(SERVE_SPEEDS[1:], start=1)]
+    fab = MappingFabric(len(fleet), backend="fused", device=DEVICE,
+                        device_counters=True)
+    front = HeftFrontEnd(fleet, fabric=fab)
+    rng = np.random.default_rng(seed)
+    requests = serve_requests(rng, cfg.vocab_size)
+    arrivals = [min(i, 2 * SERVE_NEW_TOKENS // 3)
+                for i in range(len(requests))]
+    staged, decided, host = record_decisions(fab)
+    in_mesh = [0, 0]                      # meshed ticks, their launches
+    tick = eng.decode_tick
+
+    def meshed_tick(sched=None):
+        before = K.launch_counts()["fused_decision"]
+        out = tick(sched)
+        in_mesh[0] += 1
+        in_mesh[1] += K.launch_counts()["fused_decision"] - before
+        return out
+
+    eng.decode_tick = meshed_tick
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, stats = front.run_continuous(
+        requests, arrival_ticks=arrivals, max_batch=SERVE_MAX_BATCH,
+        page_size=SERVE_PAGE_SIZE, fused=True)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    del eng.decode_tick
+    unwrap(fab)
+    require(in_mesh[1] > 0, f"dist-serve: fused_decision never launched in "
+                            f"the meshed replica's {in_mesh[0]} ticks")
+    require(counts["fused_decision"] == len(decided) + len(host),
+            f"dist-serve: {counts['fused_decision']} launches for "
+            f"{len(decided)} decision ticks + {len(host)} host events")
+    require(stats["allocated"] == stats["freed"] > 0,
+            f"dist-serve: pages {stats['allocated']} != {stats['freed']}")
+    check_decisions(torch, staged, decided, fab.num_pes)
+    dense = fleet[1].engine
+    for i, (prompt, nt) in enumerate(requests):
+        require(np.array_equal(outs[i], dense.generate(prompt[None, :],
+                                                       nt)[0]),
+                f"dist-serve: request {i} differs from the dense meshless "
+                f"generate")
+    # a live migration off the mesh and back, mid-generation
+    prompt, nt = requests[0]
+    slot = eng.admit(prompt, nt)
+    for _ in range(5):
+        eng.decode_tick()
+    mesh = eng.mesh
+    eng.reshard(None)
+    require(not any(isinstance(p, DTensor) for p in eng.params.parameters()),
+            "dist-serve: reshard(None) left DTensor parameters")
+    for _ in range(3):
+        eng.decode_tick()
+    eng.reshard(mesh)
+    meshed.sync_mesh_identity()
+    while not eng.finished_slots():
+        eng.decode_tick()
+    require(np.array_equal(eng.retire(slot), outs[0]),
+            "dist-serve: tokens changed across reshard(None) and back")
+    require(meshed.mesh_shape == (1, 1), "dist-serve: mesh identity")
+    new = sum(n for _, n in requests)
+    log(f"[dist-serve] {card} | run_continuous over a (1, 1) mesh-backed "
+        f"replica + 2 meshless: {len(requests)} requests, {new} new tokens "
+        f"in {wall:.3f} s ({new / wall:.1f} tokens/s), {stats['ticks']} "
+        f"ticks, decisions {stats['fused_decisions']} in-tick / "
+        f"{stats['host_decisions']} host, fused_decision {in_mesh[1]} "
+        f"launches in {in_mesh[0]} meshed ticks, pages {stats['allocated']} "
+        f"== {stats['freed']}; every request bitwise the dense generate, "
+        f"every decision bitwise decision_ref, reshard(None) and back "
+        f"bitwise")
+    timing = time_mesh_ticks(torch, {"meshed": eng, "meshless":
+                                     fleet[1].engine}, fab, rng, cfg)
+    m, p = timing["meshed"], timing["meshless"]
+    log(f"[dist-serve] {card} | decode tick at {m['lanes']} lanes: meshed "
+        f"{m['tick_ms']:.6f} ms ({m['aten_ops_per_tick']} aten ops, "
+        f"{m['redistributions_per_tick']} DTensor redistributions a tick), "
+        f"meshless {p['tick_ms']:.6f} ms ({p['aten_ops_per_tick']} aten "
+        f"ops); carrying a decision: meshed {m['fused_tick_ms']:.6f} ms, "
+        f"meshless {p['fused_tick_ms']:.6f} ms")
+    return {"card": card, "wall_s": wall, "new_tokens": new,
+            "ticks": stats["ticks"], "launches": counts,
+            "meshed_ticks": in_mesh[0], "meshed_launches": in_mesh[1],
+            "fused_decisions": stats["fused_decisions"],
+            "host_decisions": stats["host_decisions"],
+            "pages": stats["allocated"], "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# phase: dist-train (two ranks on the one card over gloo, pod = 2)
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "deepseek_7b"
+DIST_LAYERS = 4                 # of 30: two ranks' state fits the card
+DIST_STEPS, DIST_BATCH, DIST_SEQ, DIST_LR = 2, 4, 512, 3e-3
+DIST_TIMEOUT_S = 600
+DIST_SMOKE_STEPS = 3
+
+
+def dist_config(layers: int):
+    """deepseek-7b at its published widths, cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+    full = get_config(DIST_ARCH)
+    check_widths(full, DIST_ARCH)
+    return full.with_(num_layers=layers)
+
+
+def bits_checksum(torch, params) -> list[int]:
+    """One int64 a parameter: its bit patterns weighted by position, so two
+    ranks' parameters agree in these exactly when (with near certainty)
+    they are bitwise equal."""
+    out = []
+    for p in params.parameters():
+        bits = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32).to(
+            torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def rounded_bits(torch, model, seed: int):
+    """``model`` with every nonzero bf16 weight moved one unit of its last
+    place up or down (random signs from ``seed``): one rounding."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            ints = torch.int16 if p.element_size() == 2 else torch.int32
+            step = torch.randint(0, 2, p.shape, generator=g,
+                                 device=p.device, dtype=ints) * 2 - 1
+            p.view(ints).add_(torch.where(p != 0, step,
+                                          torch.zeros_like(step)))
+    return model
+
+
+def model_grads(torch, cfg, model, tokens, labels) -> dict:
+    """``{name: d loss / d param}`` of ``model`` on these rows (the loss the
+    train step differentiates)."""
+    from repro_torch.models.model import loss_fn
+    names, leaves = zip(*model.named_parameters())
+    with torch.enable_grad():
+        loss, _ = loss_fn(model, tokens, labels, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return dict(zip(names, grads))
+
+
+def check_pod_reductions(torch, cfg, group, rank: int, seed: int,
+                         batch: dict) -> dict:
+    """The pod reductions held on real gradients (two ranks, collective).
+
+    Each rank takes the gradient of its half of ``batch`` at the initial
+    weights and reduces it with ``psum_mean`` and ``compressed_psum_mean``
+    (timed; a cold residual, as at step 1).  Rank 1 sends its gradient to
+    rank 0, which holds, entry by entry against the exact mean ``m`` of the
+    two ranks' gradients (f32): the exact result within one bf16 rounding,
+    ``2**-8 |m|`` (gloo sums the bf16 pair and rounds once; the halving is
+    exact); the int8 result within half an int8 step of its scale group's
+    absmax over both ranks, plus one bf16 rounding of the result.  Then,
+    leaf by leaf, ``m`` against the whole-batch gradient, ``|m - g| / |g|``
+    (2-norms), within ``ROUND_FACTOR`` times what one bf16 rounding of the
+    weights moves the whole-batch gradient by (two draws).  A reduction
+    that kept one rank's half, forgot the ``/ n``, flipped the sign or
+    returned zeros misses these by orders of magnitude.  Returns rank 0's
+    record (``{}`` on rank 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import compressed_psum_mean, psum_mean
+    from repro_torch.models import init_params
+    from repro_torch.train.trainer import scale_groups
+
+    def fresh():
+        m = init_params(cfg, torch.Generator(device=DEVICE)
+                        .manual_seed(seed), device=DEVICE)
+        m.requires_grad_(True)
+        return m
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    tokens, labels = batch["tokens"], batch["labels"]
+    rows = tokens.shape[0] // 2
+    own = slice(rank * rows, (rank + 1) * rows)
+    model = fresh()
+    grads = model_grads(torch, cfg, model, tokens[own], labels[own])
+    groups = scale_groups(cfg, grads)
+    outs, seconds = {}, {}
+    for kind in ("exact", "compressed"):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if kind == "exact":
+            outs[kind] = psum_mean(grads, group)
+        else:
+            outs[kind], _ = compressed_psum_mean(grads, group, None, groups)
+        sync()
+        seconds[kind] = time.perf_counter() - t0
+    peer = {}
+    for n, g in grads.items():
+        buf = g if rank == 1 else torch.empty_like(g)
+        dist.broadcast(buf.view(-1).view(torch.uint8), src=1)  # raw bits
+        if rank == 0:
+            peer[n] = buf
+    if rank == 1:
+        return {}
+
+    amax: dict = {}
+    for n in grads:
+        key = groups[n]
+        amax[key] = max(amax.get(key, 0.0),
+                        float(grads[n].abs().max()), float(peer[n].abs().max()))
+    def worst(err, bound):
+        """max err / bound (0 / 0 counts 0, x / 0 infinite)."""
+        r = torch.where(bound > 0, err / bound.clamp_min(1e-38),
+                        torch.where(err > 0, math.inf, 0.0))
+        return float(r.max())
+
+    exact_ratio = comp_ratio = 0.0
+    for n in grads:
+        m = (grads[n].float() + peer[n].float()) / 2
+        ex = outs["exact"][n].float()
+        exact_ratio = max(exact_ratio, worst(
+            (ex - m).abs(), 2.0 ** -8 * m.abs() * (1 + 2.0 ** -16)))
+        cp = outs["compressed"][n].float()
+        scale = max(amax[groups[n]], 1e-30) / 127
+        comp_ratio = max(comp_ratio, worst(
+            (cp - m).abs(), 0.5 * scale * (1 + 2.0 ** -10)
+            + 2.0 ** -8 * cp.abs() * (1 + 2.0 ** -6)))
+    del outs
+    whole = model_grads(torch, cfg, model, tokens, labels)
+    norms = {n: float(g.float().norm()) for n, g in whole.items()}
+    gaps = {n: float(((grads[n].float() + peer[n].float()) / 2
+                      - whole[n].float()).norm()) for n in whole}
+    del grads, peer, model
+    spread = dict.fromkeys(whole, 0.0)
+    for r in (1, 2):
+        moved = model_grads(torch, cfg, rounded_bits(torch, fresh(), r),
+                            tokens, labels)
+        for n, g in moved.items():
+            spread[n] = max(spread[n], float((g.float()
+                                              - whole[n].float()).norm()))
+        del moved
+    worst, ratio = None, -math.inf
+    for n in whole:
+        if gaps[n] == 0:
+            continue
+        r = gaps[n] / spread[n] if spread[n] > 0 else math.inf
+        if r > ratio:
+            worst, ratio = n, r
+    rel = {n: (gaps[n] / norms[n], spread[n] / norms[n])
+           for n in whole if norms[n] > 0}
+    del whole
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"reduction_s": seconds, "exact_err_over_bound": exact_ratio,
+            "compressed_err_over_bound": comp_ratio,
+            "whole_batch_worst_leaf": worst,
+            "whole_batch_gap_over_spread": ratio,
+            "whole_batch_rel_gap_max": max(g for g, _ in rel.values()),
+            "rounding_rel_spread_min": min(sp for _, sp in rel.values())}
+
+
+def _dist_train_worker(rank: int, world: int, store: str, out_dir: str,
+                       layers: int, seed: int, device: str) -> None:
+    """One pod of the dist-train phase (see :func:`phase_dist_train`)."""
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    # two ranks share the card: segments that grow leave less unused
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+    global DEVICE
+    DEVICE = device
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+
+    if device == "cuda":
+        torch.cuda.set_device(0)          # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    mesh = make_debug_mesh((world,), ("pod",), device=device)
+    cfg = dist_config(layers)
+    opt_cfg = AdamWConfig(moment_dtype="int8", learning_rate=DIST_LR)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=DIST_SEQ,
+                                    global_batch=DIST_BATCH, seed=seed))
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def batch_at(s):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(s).items()}
+
+    rec = {"steps": {}, **check_pod_reductions(
+        torch, cfg, mesh.get_group("pod"), rank, seed, batch_at(0))}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for kind, comp in (("exact", False), ("compressed", True)):
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(seed), device=device)
+        params.requires_grad_(True)
+        opt = init_opt_state(dict(params.named_parameters()), opt_cfg)
+        step = make_train_step(cfg, opt_cfg, pod_axis="pod",
+                               compress_pods=comp, mesh=mesh)
+        residual, times, equal = None, [], []
+        for s in range(DIST_STEPS):
+            batch = batch_at(s)
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, residual, met = step(params, opt, residual, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+            sums = torch.tensor(bits_checksum(torch, params))
+            gathered = [torch.zeros_like(sums) for _ in range(world)]
+            dist.all_gather(gathered, sums)
+            equal.append(all(torch.equal(g, sums) for g in gathered))
+            require(np.isfinite(float(met["loss"])),
+                    f"[dist-train] {kind} step {s + 1} loss {met['loss']}")
+        rec["steps"][kind] = {"s": times, "ranks_bitwise_equal": equal,
+                              "loss": float(met["loss"]),
+                              "peak_bytes": (torch.cuda.max_memory_allocated()
+                                             if device == "cuda" else 0)}
+        if comp:
+            res_ok = all(bool(torch.isfinite(e).all())
+                         for e in residual.values())
+            nonzero = any(bool((e != 0).any()) for e in residual.values())
+            require(res_ok and nonzero,
+                    f"[dist-train] residual finite {res_ok} nonzero "
+                    f"{nonzero}")
+            rec["residual_elems"] = sum(e.numel() for e in residual.values())
+        del params, opt, residual, step
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # a Trainer at smoke widths saves the residual with num_pods = 2; the
+    # parent restores it at pod = 1
+    from repro_torch.configs import get_smoke_config
+    smoke = get_smoke_config(DIST_ARCH)
+    tr = Trainer(smoke, AdamWConfig(learning_rate=DIST_LR),
+                 DataConfig(vocab_size=smoke.vocab_size, seq_len=32,
+                            global_batch=4, seed=seed),
+                 TrainerConfig(total_steps=DIST_SMOKE_STEPS,
+                               checkpoint_every=DIST_SMOKE_STEPS,
+                               checkpoint_dir=f"{out_dir}/ckpt",
+                               mesh_shape=(world,), compress_pods=True),
+                 device=device)
+    tr.run()
+    if rank == 0:
+        torch.save({n: e for n, e in tr.last_residual.items()},
+                   f"{out_dir}/smoke_residual.pt")
+        Path(f"{out_dir}/rank0.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_dist_train(torch, seed: int, card: str,
+                     layers: int = DIST_LAYERS) -> dict:
+    """Two processes on the one card over a ``gloo`` group, a ``(2,)``
+    mesh of pods: deepseek-7b at its published widths with ``layers`` of
+    its 30 layers, bf16, AdamW with int8 moments, remat on,
+    ``TokenPipeline`` batches of 4 x 512 tokens split over the pods; two
+    steps of the exact pod step and two of the int8 error-feedback one.
+    Checks: the two reductions on the ranks' real gradients
+    (:func:`check_pod_reductions`); both ranks' parameters bitwise equal
+    after every step; the residual finite and non-zero; a smoke-width
+    Trainer's residual saved at pod = 2 and restored here at pod = 1 keeps
+    Σe/n.  The step time and the reduction's alone
+    are printed: gloo stages the card's tensors through the host, the only
+    transport two ranks on one card have."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    work = Path(__file__).resolve().parent / "build" / "dist_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    free_card(torch)
+    if DEVICE == "cuda":
+        log(f"[dist-train] this process holds "
+            f"{torch.cuda.memory_allocated()} bytes "
+            f"({torch.cuda.memory_reserved()} reserved) as the ranks start")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _dist_train_worker,
+        args=(2, str(work / "store"), str(work), layers, seed, DEVICE),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            require(False, f"[dist-train] ranks still running after "
+                           f"{DIST_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    rec = json.loads((work / "rank0.json").read_text())
+    for kind, st in rec["steps"].items():
+        require(all(st["ranks_bitwise_equal"]),
+                f"[dist-train] {kind}: the two ranks' parameters differ "
+                f"after a step: {st['ranks_bitwise_equal']}")
+    require(rec["exact_err_over_bound"] <= 1,
+            f"[dist-train] psum_mean {rec['exact_err_over_bound']} x one "
+            f"bf16 rounding from the ranks' exact mean gradient")
+    require(rec["compressed_err_over_bound"] <= 1,
+            f"[dist-train] compressed_psum_mean "
+            f"{rec['compressed_err_over_bound']} x (half an int8 step + one "
+            f"bf16 rounding) from the ranks' exact mean gradient")
+    require(rec["whole_batch_gap_over_spread"] <= ROUND_FACTOR,
+            f"[dist-train] the ranks' mean gradient is "
+            f"{rec['whole_batch_gap_over_spread']} x the one-rounding spread "
+            f"from the whole-batch gradient at "
+            f"{rec['whole_batch_worst_leaf']} (bound {ROUND_FACTOR:g}x)")
+
+    # the smoke Trainer's residual, restored at pod = 1 in this process
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    init_world("nccl" if DEVICE == "cuda" else "gloo", device=DEVICE)
+    smoke = get_smoke_config(DIST_ARCH)
+    saved = torch.load(work / "smoke_residual.pt")
+    tr = Trainer(smoke, AdamWConfig(learning_rate=DIST_LR),
+                 DataConfig(vocab_size=smoke.vocab_size, seq_len=32,
+                            global_batch=4, seed=seed),
+                 TrainerConfig(total_steps=DIST_SMOKE_STEPS + 1,
+                               checkpoint_dir=str(work / "ckpt"),
+                               mesh_shape=(1,), compress_pods=True),
+                 device=DEVICE)
+    _, _, restored, start = tr.init_or_restore()
+    require(start == DIST_SMOKE_STEPS, f"[dist-train] restored at {start}")
+    worst = 0.0
+    for n, e in saved.items():
+        require(e.shape[0] == 2 and restored[n].shape[0] == 1,
+                f"[dist-train] residual {n}: {tuple(e.shape)} -> "
+                f"{tuple(restored[n].shape)}")
+        worst = max(worst, float((restored[n].sum(0).cpu() / 1
+                                  - e.sum(0) / 2).abs().max()))
+    require(worst <= 1e-6 * max(float(e.abs().max()) for e in saved.values()),
+            f"[dist-train] Σe/n moved by {worst} across the pod-count change")
+    shutil.rmtree(work, ignore_errors=True)
+    ex, cp = rec["steps"]["exact"], rec["steps"]["compressed"]
+    red = rec["reduction_s"]
+    log(f"[dist-train] {card} | {DIST_ARCH} at its published widths, "
+        f"{layers} of 30 layers, bf16, int8 moments, 2 ranks on one card "
+        f"over gloo, batch {DIST_BATCH} x {DIST_SEQ}: exact step "
+        f"{ex['s']} s (psum_mean alone {red['exact']:.6f} s), int8 "
+        f"step {cp['s']} s (compressed_psum_mean alone "
+        f"{red['compressed']:.6f} s); rank 0 peak {ex['peak_bytes']} / "
+        f"{cp['peak_bytes']} bytes; ranks bitwise equal every step; on the "
+        f"ranks' gradients psum_mean at most "
+        f"{rec['exact_err_over_bound']:.6f} x one bf16 rounding from their "
+        f"exact mean, compressed_psum_mean at most "
+        f"{rec['compressed_err_over_bound']:.6f} x half an int8 step (+ one "
+        f"bf16 rounding), the "
+        f"mean vs the whole-batch gradient at most "
+        f"{rec['whole_batch_gap_over_spread']:.6f} x the one-rounding "
+        f"spread ({rec['whole_batch_worst_leaf']}; relative gap at most "
+        f"{rec['whole_batch_rel_gap_max']:.6e}, relative spread at least "
+        f"{rec['rounding_rel_spread_min']:.6e}); "
+        f"residual finite, nonzero; Σe/n kept across pod 2 -> 1 "
+        f"(max {worst:.3e}); wall {wall:.3f} s")
+    rec.update(card=card, layers=layers, wall_s=wall,
+               sum_e_over_n_gap=worst)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1545,10 +2158,19 @@ def main() -> int:
         launches[name] = queue_counts[name]
 
     t0 = time.perf_counter()
-    serve = phase_serve(torch, K, args.seed)
+    serve, params = phase_serve(torch, K, args.seed)
     walls["serve"] = time.perf_counter() - t0
     log(f"[serve] wall {walls['serve']:.3f} s")
     launches["fused_decision"] += serve["launches"]["fused_decision"]
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    dist_serve = phase_dist_serve(torch, K, get_config(SERVE_ARCH), params,
+                                  args.seed, card)
+    walls["dist_serve"] = time.perf_counter() - t0
+    log(f"[dist-serve] wall {walls['dist_serve']:.3f} s")
+    launches["fused_decision"] += dist_serve["launches"]["fused_decision"]
+    del params
     free_card(torch)
 
     t0 = time.perf_counter()
@@ -1573,6 +2195,11 @@ def main() -> int:
     log(f"[train] launches of the four kernels {train['launches']}, wall "
         f"{walls['train']:.3f} s")
     free_card(torch)
+
+    t0 = time.perf_counter()
+    dist_train = phase_dist_train(torch, args.seed, card)
+    walls["dist_train"] = time.perf_counter() - t0
+    log(f"[dist-train] wall {walls['dist_train']:.3f} s")
 
     t0 = time.perf_counter()
     timing = phase_timing(torch, args.seed)
@@ -1611,9 +2238,13 @@ def main() -> int:
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
             "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
-            "train": train,
+            "train": train, "dist_serve": dist_serve,
+            "dist_train": dist_train,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@ tuples) of torch tensors.
   bf16 leaf reads back as a raw ``|V2`` array: the bits survive, the dtype
   does not.)  int8 optimizer moments round-trip exactly.
 
-Leaves are stored whole, keyed by their path in the tree.  Restoring onto
-another mesh (the reference's ``shardings=``) waits for ``dist/``.
+Leaves are stored whole, keyed by their path in the tree.  ``restore(
+shardings=...)`` places the restored leaves on a mesh through
+``dist.sharding.reshard_tree``, the in-memory migration primitive that live
+replicas use too.
 """
 
 from __future__ import annotations
@@ -159,11 +161,9 @@ class Checkpointer:
         """Rebuild a ``template``-shaped tree from checkpoint ``step`` (the
         latest by default).  Each leaf comes back with its saved dtype, cast
         to the template leaf's dtype where that is a tensor, on ``device``
-        (the card unless told otherwise)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) places leaves on a mesh, which waits "
-                "for the port of dist/ (ROADMAP queue 1 item 11)")
+        (the card unless told otherwise).  ``shardings``: a tree (or prefix)
+        of ``dist.sharding.NamedSharding`` to place the leaves on a mesh
+        with, through ``reshard_tree``."""
         dev = resolve_device(device)
         self.wait()
         if step is None:
@@ -182,7 +182,12 @@ class Checkpointer:
             if isinstance(leaf, torch.Tensor):
                 t = t.to(leaf.dtype)
             out[k] = t.to(dev)
-        return _unflatten_into(template, out)
+        tree = _unflatten_into(template, out)
+        if shardings is not None:
+            from repro_torch.dist.sharding import reshard_tree
+
+            tree = reshard_tree(tree, shardings)
+        return tree
 
     def read_metadata(self, step: int | None = None) -> dict:
         if step is None:

@@ -4,13 +4,25 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --fused-scheduler
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
 
-Counterpart of ``repro.launch.serve`` without the mesh-backed paths
-(``--sharded``, ``--mesh-shapes``, ``--reshard-to``, ``--chaos``,
-``--min-goodput`` come with ``dist/``).  It builds a small heterogeneous
-fleet of replicas (speeds 1.0 / 0.7 / 1.4) of the ``--arch`` smoke
-configuration, sharing one random parameter set (seed 0), and serves
-``--requests`` random prompts of 8-47 tokens through the ``HeftFrontEnd``.
-It runs on the card unless ``--device cpu`` is given.
+Counterpart of ``repro.launch.serve`` (its ``--chaos`` / ``--min-goodput``
+failure replay is not ported yet).  It builds a small heterogeneous fleet
+of replicas (speeds 1.0 / 0.7 / 1.4) of the ``--arch`` smoke configuration,
+sharing one random parameter set (seed 0), and serves ``--requests`` random
+prompts of 8-47 tokens through the ``HeftFrontEnd``.  It runs on the card
+unless ``--device cpu`` is given.
+
+``--sharded`` backs the replicas with mesh slices instead
+(``--mesh-shapes 1x1,2x1,2x2``: ``serve.mesh_backed_fleet``), one process
+a device under ``torchrun`` over ``--backend`` (``gloo`` on the CPU,
+``nccl`` on cards); without ``torchrun`` the world is this one process.
+``--reshard-to 2x1`` then migrates replica 0 live onto a slice carved from
+the ranks the fleet left over, and serves the requests again,
+token-identically (exit 1 otherwise):
+
+  PYTHONPATH=src torchrun --nproc-per-node 7 -m repro_torch.launch.serve \
+      --device cpu --sharded --mesh-shapes 1x1,2x1,2x2 --paged --fused-scheduler
+
+Every rank runs the front end; rank 0 logs and writes the trace.
 
 A Mamba layer prefills only prompts of at most its scan chunk or a
 multiple of it (``models/mamba.py``), so the random lengths fail for
@@ -41,11 +53,13 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import init_world
 from repro_torch.models import init_params
 from repro_torch.obs import MetricsRegistry, Tracer, get_logger
 from repro_torch.obs.metrics import time_s
 from repro_torch.sched_integration.fabric import MappingFabric
-from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
+from repro_torch.serve import (HeftFrontEnd, ReplicaHandle, ServeEngine,
+                               mesh_backed_fleet)
 
 log = get_logger("serve")
 
@@ -82,13 +96,35 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-lens", default=None, metavar="N,N,...",
                     help="prompt lengths, used in turn (default: drawn "
                          "from 8-47)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="back replicas with mesh slices of the world's "
+                         "ranks (one process a device, under torchrun)")
+    ap.add_argument("--mesh-shapes", default="1x1",
+                    help="comma-separated slice shapes for --sharded, "
+                         "e.g. 1x1,2x1,2x2")
+    ap.add_argument("--reshard-to", default=None, metavar="AxB",
+                    help="with --sharded: after serving, migrate replica 0 "
+                         "live onto a slice of this shape carved from the "
+                         "leftover ranks, and re-verify outputs")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="with --sharded: the process-group backend "
+                         "(default: gloo with --device cpu, else nccl)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (cpu to run "
                          "the plain path on the CPU)")
     args = ap.parse_args(argv)
     if args.fused_scheduler and not args.paged:
         raise SystemExit("--fused-scheduler requires --paged")
+    if args.reshard_to and not args.sharded:
+        raise SystemExit("--reshard-to requires --sharded")
 
+    rank = 0
+    if args.sharded:
+        rank, _ = init_world(args.backend or ("gloo" if args.device == "cpu"
+                                              else "nccl"),
+                             device=args.device)
+    if rank:
+        log.setLevel("WARNING")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -97,12 +133,25 @@ def main(argv=None) -> None:
              f"device={device}")
 
     tracer, metrics = (Tracer(), MetricsRegistry()) if args.trace else (None, None)
-    speeds = [1.0, 0.7, 1.4][: args.replicas] or [1.0]
-    fleet = [ReplicaHandle(f"replica{i}(x{s})",
-                           ServeEngine(cfg, params, max_len=128,
-                                       lanes=args.max_batch, tracer=tracer),
-                           speed=s)
-             for i, s in enumerate(speeds)]
+    spare = []
+    if args.sharded:
+        shapes = [tuple(int(d) for d in s.split("x"))
+                  for s in args.mesh_shapes.split(",")]
+        fleet, spare = mesh_backed_fleet(cfg, params, shapes, max_len=128,
+                                         lanes=args.max_batch,
+                                         return_spare=True, device=device)
+        for r in fleet:
+            r.engine.tracer = tracer
+        log.info(f"mesh-backed fleet: {[r.mesh_shape for r in fleet]} "
+                 f"slices ({len(spare)} spare ranks)")
+    else:
+        speeds = [1.0, 0.7, 1.4][: args.replicas] or [1.0]
+        fleet = [ReplicaHandle(f"replica{i}(x{s})",
+                               ServeEngine(cfg, params, max_len=128,
+                                           lanes=args.max_batch,
+                                           tracer=tracer),
+                               speed=s)
+                 for i, s in enumerate(speeds)]
 
     fabric = None
     if args.trace or args.fused_scheduler:
@@ -162,7 +211,29 @@ def main(argv=None) -> None:
     log.info(f"request distribution (HEFT_RT): {counts}")
     log.info(f"sample output ids: {outs[0][0, -8:].tolist()}")
 
-    if args.trace:
+    if args.reshard_to:
+        from repro_torch.launch.mesh import make_debug_mesh
+
+        shape = tuple(int(d) for d in args.reshard_to.split("x"))
+        need = int(np.prod(shape))
+        if len(spare) < need:
+            raise SystemExit(
+                f"--reshard-to {args.reshard_to} needs {need} spare ranks, "
+                f"the world has {len(spare)} left after the fleet slices")
+        target = make_debug_mesh(shape, devices=spare[:need], device=device)
+        old = fleet[0].mesh_shape
+        fleet[0].engine.reshard(target)
+        fleet[0].sync_mesh_identity()     # speed / rates follow the slice
+        log.info(f"replica 0 resharded live: {old} -> "
+                 f"{fleet[0].mesh_shape} (speed x{fleet[0].speed:.0f})")
+        outs2, _ = front.run_batch(requests)
+        same = all(np.array_equal(a, b) for a, b in zip(outs, outs2))
+        log.info(f"post-reshard outputs "
+                 f"{'token-identical' if same else 'MISMATCH'}")
+        if not same:
+            raise SystemExit(1)     # the verification must fail loudly
+
+    if args.trace and rank == 0:
         for name, value in fabric.drain_counters().items():
             metrics.gauge("fabric.device", counter=name).set(value)
         tracer.export(args.trace, metrics=metrics)

@@ -11,19 +11,30 @@ attaches a ``repro_torch.obs`` Tracer and MetricsRegistry to the Trainer
 (a ``train.step`` span a step, the ``train.step_s`` histogram) and writes a
 Perfetto-loadable Chrome trace with the metrics embedded
 (``python -m repro_torch.obs.check OUT.json --require train.step``).
-``--mesh-shape`` and ``--compress-pods`` are the reference's multi-pod
-knobs: they raise until ``dist/`` is ported (ROADMAP queue 1 item 11).
 Verbosity is the ``REPRO_LOG`` env knob.
+
+Multi-pod runs are one process a device under ``torchrun``, the world the
+mesh's size: ``--mesh-shape`` over (pod, data[, model]) and
+``--compress-pods`` for the int8 error-feedback pod reduction, over
+``--backend`` (``gloo`` on the CPU, ``nccl`` on cards; ``gloo`` also for
+several ranks on one card):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --mesh-shape 2,2 --compress-pods --steps 4
+
+Rank 0 logs and writes the checkpoints and the trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig
+from repro_torch.launch.mesh import init_world
 from repro_torch.obs import MetricsRegistry, Tracer, get_logger
 from repro_torch.obs.metrics import time_s
 from repro_torch.optim import AdamWConfig, warmup_cosine
@@ -48,12 +59,13 @@ def main(argv=None) -> None:
                     help="gradient accumulation factor")
     ap.add_argument("--mesh-shape", default=None,
                     help="comma-separated mesh over (pod,data,model) axes; "
-                         "raises until dist/ is ported (ROADMAP queue 1 "
-                         "item 11)")
+                         "one process a device under torchrun")
     ap.add_argument("--compress-pods", action="store_true",
-                    help="int8 error-feedback cross-pod gradient reduction; "
-                         "raises until dist/ is ported (ROADMAP queue 1 "
-                         "item 11)")
+                    help="int8 error-feedback cross-pod gradient reduction "
+                         "(needs --mesh-shape)")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="process-group backend of a --mesh-shape run "
+                         "(default: gloo with --device cpu, else nccl)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="export a Chrome trace (Perfetto) of the run, with "
                          "the step-time metrics snapshot embedded")
@@ -64,6 +76,15 @@ def main(argv=None) -> None:
 
     mesh_shape = (tuple(int(x) for x in args.mesh_shape.split(","))
                   if args.mesh_shape else None)
+    if mesh_shape is not None:
+        world = int(os.environ.get("WORLD_SIZE", "0"))
+        if world != math.prod(mesh_shape):
+            raise ValueError(
+                f"--mesh-shape {args.mesh_shape} runs one process a device: "
+                f"start it under torchrun with --nproc-per-node "
+                f"{math.prod(mesh_shape)} (WORLD_SIZE is {world or 'unset'})")
+        init_world(args.backend or ("gloo" if args.device == "cpu"
+                                    else "nccl"), device=args.device)
     cfg = get_smoke_config(args.arch)
     log.info(f"arch={cfg.name} params={cfg.param_count()/1e6:.2f}M "
              f"microbatches={args.microbatches} device={args.device or 'cuda'}")
@@ -83,6 +104,8 @@ def main(argv=None) -> None:
     )
     (_, _, history), dt = time_s(trainer.run,
                                  inject_failure_at=args.inject_failure_at)
+    if trainer.rank != 0:
+        return
     for step, loss in history:
         log.info(f"step {step:5d} loss {loss:.4f}")
     tok_s = args.steps * args.batch * args.seq / dt

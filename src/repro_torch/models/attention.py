@@ -21,6 +21,15 @@ rows and of the cache beyond its position, which the paged serving path
 relies on (``serve/paging.py``).  The ``x @ W`` projections are plain
 ``torch.matmul``.  Cache writes are in place: the caller's cache tensors
 hold the new token after a decode step.
+
+Under a mesh policy (``repro_torch.dist``) the parameters are ``DTensor``s
+and the ``attn_heads`` / ``attn_kv`` hints lay q, k and v out with their
+heads over ``model``, as the reference's do.  The attention core (the
+cache writes at per-row positions, the masked softmax) has no ``DTensor``
+sharding rule; it is independent per head, so it runs on each rank's
+local heads (``dist.hints.local_call``) and writes the rank's shard of
+the head-sharded cache in place.  Without a policy every hint and
+``local_call`` is an identity.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.hints import current_policy, local_call, shard_hint
+from repro_torch.dist.sharding import P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of, param,
                                        rms_norm, softcap)
@@ -117,7 +128,7 @@ def chunked_causal_attention(
     scale: float,
     attn_cap: float | None,
     window: int | None,         # None → global causal
-    q_chunk: int = 512,
+    q_chunk: int | None = None,
     kv_chunk: int = 512,
     differentiable: bool = False,
 ) -> torch.Tensor:
@@ -133,11 +144,16 @@ def chunked_causal_attention(
     keeps of that flag is the reference's per-q-block remat: with it, and
     gradients on, each q block is recomputed in the backward
     (``torch.utils.checkpoint``), so the backward holds one block row of
-    probabilities at a time."""
+    probabilities at a time.  ``q_chunk`` defaults to the policy's
+    ``__attn_q_chunk__`` (``"full"``: one q block), else 512."""
     B, S, H, d = q.shape
     KV = k.shape[2]
     dv = v.shape[-1]
     G = H // KV
+    if q_chunk is None:
+        q_chunk = (current_policy() or {}).get("__attn_q_chunk__", 512)
+        if q_chunk == "full":
+            q_chunk = S
     qc = min(q_chunk, S)
     kc = min(kv_chunk, S)
     if S % qc or S % kc:
@@ -210,34 +226,56 @@ def gqa_block(
 ) -> tuple[torch.Tensor, dict | None]:
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params.wq).reshape(B, S, H, hd)
-    k = (x @ params.wk).reshape(B, S, KV, hd)
-    v = (x @ params.wv).reshape(B, S, KV, hd)
+    q = shard_hint((x @ params.wq).reshape(B, S, H, hd), "attn_heads")
+    k = shard_hint((x @ params.wk).reshape(B, S, KV, hd), "attn_heads")
+    v = shard_hint((x @ params.wv).reshape(B, S, KV, hd), "attn_heads")
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps)
         k = rms_norm(k, params.k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scale = hd ** -0.5
+    heads = _heads_spec()
 
     if decode_pos is not None:
         if cache is None or S != 1:
             raise ValueError("decode takes one token a row and a cache")
-        _write_token(cache["k"], k[:, 0], decode_pos)
-        _write_token(cache["v"], v[:, 0], decode_pos)
-        out = decode_attention(q, cache["k"], cache["v"], decode_pos,
-                               scale=scale, attn_cap=cfg.attn_softcap,
-                               window=window)
+
+        def core(q, k, v, ck, cv):
+            _write_token(ck, k[:, 0], decode_pos)
+            _write_token(cv, v[:, 0], decode_pos)
+            return decode_attention(q, ck, cv, decode_pos, scale=scale,
+                                    attn_cap=cfg.attn_softcap, window=window)
+
+        out = local_call(core, (q, k, v, cache["k"], cache["v"]),
+                         (heads,) * 5, heads)
     else:
-        out = chunked_causal_attention(q, k, v, scale=scale,
-                                       attn_cap=cfg.attn_softcap,
-                                       window=window,
-                                       differentiable=differentiable)
-        if cache is not None:     # prefill: fill the cache's first S slots
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+        # gathering K / V once here replaces a gather a key chunk
+        k = shard_hint(k, "attn_kv")
+        v = shard_hint(v, "attn_kv")
+
+        def core(q, k, v, *cache_kv):
+            out = chunked_causal_attention(q, k, v, scale=scale,
+                                           attn_cap=cfg.attn_softcap,
+                                           window=window,
+                                           differentiable=differentiable)
+            if cache_kv:          # prefill: fill the cache's first S slots
+                ck, cv = cache_kv
+                ck[:, :S] = k.to(ck.dtype)
+                cv[:, :S] = v.to(cv.dtype)
+            return out
+
+        args = (q, k, v) + ((cache["k"], cache["v"]) if cache is not None
+                            else ())
+        out = local_call(core, args, (heads,) * len(args), heads)
     y = out.reshape(B, S, H * hd) @ params.wo
     return y, cache
+
+
+def _heads_spec():
+    """The policy's head layout (``attn_heads``), the layout the attention
+    core runs in on local heads; replicated without one."""
+    return (current_policy() or {}).get("attn_heads") or P()
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -293,6 +331,7 @@ def _mla_queries(params: MLAttention, x, cfg: ModelConfig, positions):
         q = torch.einsum("bsr,rhd->bshd", cq, params.w_uq)
     else:
         q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    q = shard_hint(q, "attn_heads")
     return q[..., :nope], apply_rope(q[..., nope:], positions,
                                      cfg.rope_theta)
 
@@ -319,38 +358,60 @@ def mla_block(
     kr = apply_rope((x @ params.w_kr)[:, :, None, :], positions,
                     cfg.rope_theta)[:, :, 0, :]                     # (B,S,rope)
 
+    heads = _heads_spec()
+    up = P(None, heads[2], None) if len(heads) > 2 else P()  # (R, H, ·)
     if decode_pos is not None:
         if cache is None or S != 1:
             raise ValueError("decode takes one token a row and a cache")
-        _write_token(cache["ckv"], ckv[:, 0], decode_pos)
-        _write_token(cache["kr"], kr[:, 0], decode_pos)
-        ckv_c, kr_c = cache["ckv"], cache["kr"]
-        # absorbed decode: w_uk folds into q, the attention runs over the
-        # latent cache, w_uv applies after
-        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, params.w_uk)
-        s = (torch.einsum("bshr,btr->bhst", q_abs.to(f32), ckv_c.to(f32))
-             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr_c.to(f32))
-             ) * scale
-        kpos = torch.arange(ckv_c.shape[1], device=x.device)
-        rows = torch.as_tensor(decode_pos, device=x.device).reshape(-1)
-        mask = kpos[None, :] <= rows[:, None]                  # (1|B, Smax)
-        s = torch.where(mask[:, None, None, :], s, NEG)
-        p = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", p, ckv_c.to(f32))
-        out = torch.einsum("bshr,rhd->bshd", o_lat.to(x.dtype), params.w_uv)
+
+        def core(q_nope, q_rope, ckv, kr, ckv_c, kr_c, w_uk, w_uv):
+            _write_token(ckv_c, ckv[:, 0], decode_pos)
+            _write_token(kr_c, kr[:, 0], decode_pos)
+            # absorbed decode: w_uk folds into q, the attention runs over
+            # the latent cache, w_uv applies after
+            q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+            s = (torch.einsum("bshr,btr->bhst", q_abs.to(f32), ckv_c.to(f32))
+                 + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                                kr_c.to(f32))) * scale
+            kpos = torch.arange(ckv_c.shape[1], device=ckv_c.device)
+            rows = torch.as_tensor(decode_pos,
+                                   device=ckv_c.device).reshape(-1)
+            mask = kpos[None, :] <= rows[:, None]              # (1|B, Smax)
+            s = torch.where(mask[:, None, None, :], s, NEG)
+            p = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", p, ckv_c.to(f32))
+            return torch.einsum("bshr,rhd->bshd", o_lat.to(x.dtype), w_uv)
+
+        out = local_call(core, (q_nope, q_rope, ckv, kr, cache["ckv"],
+                                cache["kr"], params.w_uk, params.w_uv),
+                         (heads, heads, None, None, None, None, up, up),
+                         heads)
     else:
         # prefill: expand to per-head K / V and run the chunked attention
-        k_nope = torch.einsum("bsr,rhd->bshd", ckv, params.w_uk)
-        v = torch.einsum("bsr,rhd->bshd", ckv, params.w_uv)
-        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rope_d)],
-                      dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        out = chunked_causal_attention(q, k, v, scale=scale, attn_cap=None,
-                                       window=None,
-                                       differentiable=differentiable)
-        if cache is not None:     # prefill: fill the cache's first S slots
-            cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-            cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        k_nope = shard_hint(torch.einsum("bsr,rhd->bshd", ckv, params.w_uk),
+                            "attn_heads")
+        v = shard_hint(torch.einsum("bsr,rhd->bshd", ckv, params.w_uv),
+                       "attn_heads")
+
+        def core(q_nope, q_rope, k_nope, v, kr, *cache_lat):
+            k = torch.cat([k_nope, kr[:, :, None, :].expand(
+                *k_nope.shape[:3], rope_d)], dim=-1)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            out = chunked_causal_attention(q, k, v, scale=scale,
+                                           attn_cap=None, window=None,
+                                           differentiable=differentiable)
+            if cache_lat:         # prefill: fill the cache's first S slots
+                ckv, kr, ckv_c, kr_c = cache_lat
+                ckv_c[:, :S] = ckv.to(ckv_c.dtype)
+                kr_c[:, :S] = kr.to(kr_c.dtype)
+            return out
+
+        args = (q_nope, q_rope, k_nope, v, kr)
+        specs = (heads,) * 4 + (None,)
+        if cache is not None:
+            args += (ckv, kr, cache["ckv"], cache["kr"])
+            specs += (None,) * 4
+        out = local_call(core, args, specs, heads)
     y = out.reshape(B, S, H * vd) @ params.wo
     return y, cache
 

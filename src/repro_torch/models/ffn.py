@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.hints import shard_hint
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of, param
 
@@ -44,4 +45,7 @@ def ffn_block(params: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = act(x @ params.w_gate) * (x @ params.w_up)
     else:
         h = _gelu(x @ params.w_up)
+    # the hidden stays TP-sharded: the row-parallel w_down then reduces
+    # partial sums instead of gathering the (B, S, F) activation
+    h = shard_hint(h, "ffn_hidden")
     return h @ params.w_down

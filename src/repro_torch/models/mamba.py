@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.hints import current_policy, local_call, shard_hint
+from repro_torch.dist.sharding import P
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of, param
@@ -174,6 +176,7 @@ def mamba_block(
     the position does not enter (a Mamba layer has none)."""
     S = x.shape[1]
     u, z = (x @ params.in_proj).chunk(2, dim=-1)
+    u = shard_hint(u, "mamba_inner")
     conv_state = cache["conv"] if cache is not None else None
     u_c, new_conv = _causal_conv(u, params.conv_w, params.conv_b, conv_state)
     u_c = F.silu(u_c)
@@ -192,8 +195,14 @@ def mamba_block(
         h0 = cache["ssm"] if cache is not None else None
         y, h = selective_scan(params, u_c, cfg, h0)
     if cache is not None:
-        cache["conv"].copy_(new_conv)
-        cache["ssm"].copy_(h)
+        # in place on each rank's shard of d_inner (the cache's layout)
+        inner = (current_policy() or {}).get("mamba_inner") or P()
+        m = inner[2] if len(inner) > 2 else None
+        conv_spec, ssm_spec = P(None, None, m), P(None, m, None)
+        local_call(lambda c, n: c.copy_(n), (cache["conv"], new_conv),
+                   (conv_spec, conv_spec), None)
+        local_call(lambda c, n: c.copy_(n), (cache["ssm"], h),
+                   (ssm_spec, ssm_spec), None)
     out = (y * F.silu(z)) @ params.out_proj
     return out, cache
 

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.dist.hints import current_policy, shard_hint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
@@ -94,8 +95,30 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 # forward
 # ---------------------------------------------------------------------------
 
+class _GradHint(torch.autograd.Function):
+    """Identity forward; the backward lays the cotangent out as the hint
+    site ``name`` says (the reference's ``embed_grad`` hint inside its
+    embedding VJP, which keeps the (V, D) gradient sharded)."""
+
+    @staticmethod
+    def forward(ctx, w, name):
+        ctx.name = name
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shard_hint(g, ctx.name), None
+
+
+def _embed_weight(params: Transformer):
+    w = params.embed
+    if current_policy() and w.requires_grad and torch.is_grad_enabled():
+        return _GradHint.apply(w, "embed_grad")
+    return w
+
+
 def _embed_tokens(params: Transformer, tokens, cfg: ModelConfig):
-    x = F.embedding(tokens, params.embed)
+    x = F.embedding(tokens, _embed_weight(params))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x.to(dtype_of(cfg.compute_dtype))
@@ -116,7 +139,7 @@ def forward(params: Transformer, tokens, cfg: ModelConfig, *, caches=None,
     only with gradients on; see ``apply_stack`` and
     ``chunked_causal_attention``)."""
     B, S = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
+    x = shard_hint(_embed_tokens(params, tokens, cfg), "layer_boundary")
     if decode_pos is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     else:
@@ -140,7 +163,7 @@ def logits_fn(params: Transformer, tokens, cfg: ModelConfig,
 
 def _ce_chunk(params: Transformer, hc, yc, cfg: ModelConfig) -> torch.Tensor:
     """Σ (logsumexp - gold) over one chunk, on f32 logits."""
-    logits = _unembed(params, hc, cfg).to(torch.float32)
+    logits = shard_hint(_unembed(params, hc, cfg), "logits").to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return torch.sum(logz - gold)
@@ -219,10 +242,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
 # ---------------------------------------------------------------------------
 
 def prefill_step(params: Transformer, tokens, cfg: ModelConfig,
-                 max_len: int | None = None):
-    """tokens (B,S) → (last-token logits (B,V), filled caches)."""
+                 max_len: int | None = None, caches=None):
+    """tokens (B,S) → (last-token logits (B,V), filled caches).  ``caches``:
+    zeroed caches to fill (a mesh-backed replica passes them laid out on
+    its slice); fresh ones on the tokens' device by default."""
     B, S = tokens.shape
-    caches = init_cache(cfg, B, max_len or S, device=tokens.device)
+    if caches is None:
+        caches = init_cache(cfg, B, max_len or S, device=tokens.device)
     hidden, caches, _ = forward(params, tokens, cfg, caches=caches)
     logits = _unembed(params, hidden[:, -1:, :], cfg)[:, 0, :]
     return logits, caches

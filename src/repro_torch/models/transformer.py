@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.hints import shard_hint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
@@ -157,6 +158,10 @@ def apply_sublayer(
     Returns ``(x, metrics)``; only an MoE FFN reports metrics."""
     metrics: dict = {}
     h = rms_norm(x, params.norm_1, cfg.norm_eps)
+    # sequence-gather point: with layer-boundary activations sharded over
+    # the sequence, a replicated sublayer_input trades the per-matmul
+    # weight gathers for one activation gather here
+    h = shard_hint(h, "sublayer_input")
     if slot["kind"] == "attn":
         window = cfg.local_window if slot["window"] == "local" else None
         block = (attn_mod.mla_block if cfg.attn_type == "mla"
@@ -172,6 +177,7 @@ def apply_sublayer(
     x = x + h
     if slot["ffn"] != "none":
         h = rms_norm(x, params.norm_2, cfg.norm_eps)
+        h = shard_hint(h, "sublayer_input")
         if slot["ffn"] == "moe":
             h, metrics = moe_block(params.ffn, h, cfg)
         else:
@@ -179,6 +185,7 @@ def apply_sublayer(
         if cfg.post_block_norm:
             h = rms_norm(h, params.post_norm_2, cfg.norm_eps)
         x = x + h
+    x = shard_hint(x, "layer_boundary")
     return x, metrics
 
 

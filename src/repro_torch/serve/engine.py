@@ -1,11 +1,13 @@
 """Serving engine: continuous batching with a HEFT_RT front-end scheduler.
 
-Counterpart of ``repro.serve.engine`` without the mesh: mesh-backed
-replicas, ``reshard`` and ``mesh_backed_fleet`` come with ``dist/``
-(ROADMAP queue 1, item 11).  Two layers:
+Counterpart of ``repro.serve.engine``.  Two layers:
 
 * ``ServeEngine`` — prefill + batched token-by-token greedy decode with KV
-  caches, for one replica on one device.
+  caches, for one replica: on one device, or *mesh-backed* on a
+  ``torch.distributed`` ``DeviceMesh`` slice (``mesh=``), its parameters,
+  caches and page pools ``DTensor``s laid out by ``replica_pspecs``
+  (params FSDP + TP, KV heads over ``model``, batch replicated) and every
+  step run under the replica's activation hint policy.
 * ``HeftFrontEnd`` — maps dynamically arriving requests onto a fleet of
   replicas with HEFT_RT (the paper's scheduler as the admission layer).
   Replicas may share one parameter set, as the launcher's do.
@@ -32,6 +34,19 @@ Public contracts:
   ``generate`` per request) and ``run_continuous`` (per-tick admission:
   HEFT_RT maps arrivals to sticky per-replica FIFO queues, each tick drains
   queue heads into free paged slots).  Both return outputs in request order.
+* **Mesh-backed replicas** — ``reshard(mesh)`` migrates a live replica
+  (params, page pools and a caller's in-flight caches) to another slice or
+  off the mesh (``None``), token-identically; ``mesh_backed_fleet`` carves
+  the world into slices and builds one replica each.
+
+One controller in the reference, one process a rank here: every rank runs
+the same (deterministic) front end and builds every replica, but only the
+ranks of a replica's mesh compute its steps.  What the other ranks need of
+a step (the ``generate`` tokens, the logits of ``start`` / ``step``, the
+first token of an admission, the tick's packed int32 buffer of
+``pack_tick_outputs``) is broadcast over the world from the mesh's lowest
+rank, so every rank's slots, decisions and ``T_avail`` registers stay
+equal.  At world size 1 nothing is broadcast.
 """
 
 from __future__ import annotations
@@ -40,12 +55,21 @@ import contextlib
 import time
 from dataclasses import dataclass, field
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import heft_rt_numpy
+from repro_torch.dist.hints import gathered, is_dtensor, sharding_policy
+from repro_torch.dist.sharding import (MeshAxes, from_local_like, mesh_root,
+                                       named, replica_pspecs, reshard_tree,
+                                       to_plain)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, prefill_step
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import (cache_specs, decode_step, init_cache,
+                                      param_specs, prefill_step)
 from repro_torch.obs.metrics import Stopwatch
 
 
@@ -67,13 +91,47 @@ def _span(tracer, name, **args):
     return tracer.span(name, **args)
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _check_head_split(cfg: ModelConfig, mesh, axes: MeshAxes) -> None:
+    """Raise unless the attention heads split evenly over the mesh's model
+    axis.  The attention core runs on each rank's own heads (KV heads over
+    ``model`` too), so a count the axis does not divide (GSPMD pads it in
+    the reference) is not supported."""
+    names = mesh.mesh_dim_names
+    m = mesh.size(names.index(axes.model)) if axes.model in names else 1
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    heads = ((cfg.num_heads,) if cfg.attn_type == "mla"
+             else (cfg.num_heads, cfg.num_kv_heads))
+    if "attn" in kinds and any(h % m for h in heads):
+        raise NotImplementedError(
+            f"{cfg.name}: {heads} attention heads do not split over a model "
+            f"axis of {m} (uneven head sharding is not ported; ROADMAP "
+            f"queue 1 item 11c)")
+
+
+def _set_params(shell: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """``shell`` (a parameter-shaped module) holding ``tree``'s tensors."""
+    for name, t in tree.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = shell.get_submodule(mod_name) if mod_name else shell
+        setattr(mod, leaf, torch.nn.Parameter(t, requires_grad=False))
+    return shell
+
+
 @dataclass
 class ServeEngine:
     """Single-replica engine: batched prefill + greedy decode.
 
     ``params`` is a :class:`repro_torch.models.model.Transformer`; the
     engine runs on its device.  ``lanes`` is the row count of every decode
-    step.
+    step.  ``mesh`` / ``axes`` back the replica with a mesh slice: the
+    parameters are placed once by ``replica_pspecs`` (the engine keeps its
+    own module of ``DTensor`` parameters; the caller's stays as it is), the
+    caches and pools live sharded on the slice (KV heads over ``model``),
+    and every step runs under the replica's hint policy.
     """
 
     cfg: ModelConfig
@@ -81,49 +139,174 @@ class ServeEngine:
     max_len: int = 256
     lanes: int = 8
     tracer: object | None = None        # repro_torch.obs.Tracer: step spans
+    mesh: object | None = None          # DeviceMesh slice backing the replica
+    axes: MeshAxes | None = None
+    fsdp: bool = True
 
     def __post_init__(self):
         self._paged = None              # PagedRuntime (start_paged)
+        emb = self.params.embed
+        self._home = (emb.to_local().device if is_dtensor(emb)
+                      else emb.device)
+        self._build()
+
+    def _build(self):
+        """(Re)place the parameters for the current mesh slice: the shared
+        path of construction and live resharding."""
+        if self.mesh is None:
+            self._policy = self._cache_sh = None
+            self._member = True
+            return
+        self.axes = self.axes or MeshAxes()
+        _check_head_split(self.cfg, self.mesh, self.axes)
+        specs = replica_pspecs(self.cfg, self.axes, fsdp=self.fsdp)
+        self._policy = dict(specs["policy"], __mesh__=self.mesh)
+        self._cache_sh = named(self.mesh, specs["cache"])
+        self._member = self.mesh.get_coordinate() is not None
+        tree = {n: p.detach() for n, p in self.params.named_parameters()}
+        placed = reshard_tree(tree, named(self.mesh, specs["params"]))
+        self.params = _set_params(param_specs(self.cfg), placed)
 
     @property
     def device(self) -> torch.device:
-        return self.params.embed.device
+        """This rank's device for the replica's tensors."""
+        return self._home
+
+    @property
+    def mesh_shape(self) -> tuple[int, ...] | None:
+        return tuple(self.mesh.mesh.shape) if self.mesh is not None else None
+
+    def _ctx(self):
+        """The step context: inference mode unmeshed; on a mesh, the
+        replica's hint policy with plain tensors taken as replicated
+        (``no_grad``: a ``DTensor`` view of a parameter fails in inference
+        mode)."""
+        if self.mesh is None:
+            return torch.inference_mode()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.no_grad())
+        ctx.enter_context(implicit_replication())
+        ctx.enter_context(sharding_policy(self._policy))
+        return ctx
+
+    def _publish(self, t, shape, dtype) -> torch.Tensor:
+        """A step's plain result from the replica's ranks to every rank of
+        the world (broadcast from the mesh's lowest rank); ``t`` is None on
+        the ranks outside the mesh."""
+        if self.mesh is None or self.mesh.size() == _world():
+            return t
+        buf = (t.contiguous() if self._member
+               else torch.empty(shape, dtype=dtype, device=self.device))
+        dist.broadcast(buf, src=mesh_root(self.mesh))
+        return buf
+
+    def _placeholder_caches(self, rows: int) -> dict:
+        """Shape-only caches on the ranks outside the mesh."""
+        return {name: torch.empty((s.shape[0], rows, *s.shape[2:]),
+                                  dtype=s.dtype, device="meta")
+                for name, s in cache_specs(self.cfg, 1, self.max_len).items()}
 
     def _prefill(self, tokens):
+        caches = None
+        if self._cache_sh is not None:
+            caches = reshard_tree(init_cache(self.cfg, tokens.shape[0],
+                                             self.max_len,
+                                             device=self.device),
+                                  self._cache_sh)
         return prefill_step(self.params, tokens, self.cfg,
-                            max_len=self.max_len)
+                            max_len=self.max_len, caches=caches)
 
     def _decode(self, caches, tok, pos):
         return decode_step(self.params, caches, tok, pos, self.cfg)
 
+    def reshard(self, mesh, axes: MeshAxes | None = None, caches=None):
+        """Migrate this *live* replica to another mesh slice, in memory.
+
+        The parameters, the page pools of a paged runtime and, when given,
+        a caller's in-flight cache tree move to the new slice's
+        ``replica_pspecs`` layouts through ``reshard_tree``; ``mesh=None``
+        brings the replica back to one device, whole.  Generation is bitwise
+        unchanged across the move.  Collective over the world: every rank
+        calls it.  Returns the migrated caches (None without)."""
+        with _span(self.tracer, "engine.reshard",
+                   to=str(tuple(mesh.mesh.shape)) if mesh is not None
+                   else "host", with_caches=caches is not None):
+            old_root = (mesh_root(self.mesh) if self.mesh is not None
+                        else None)
+            if caches is not None:
+                caches = to_plain(caches, self.device, src=old_root)
+            if self._paged is not None:
+                self._paged.pool.pools = to_plain(self._paged.pool.pools,
+                                                  self.device, src=old_root)
+            if self.mesh is not None:
+                tree = to_plain({n: p.detach() for n, p
+                                 in self.params.named_parameters()},
+                                self.device)
+                self.params = _set_params(param_specs(self.cfg), tree)
+            self.mesh = mesh
+            if axes is not None:
+                self.axes = axes
+            self._build()
+            if self._paged is not None:
+                self._paged.rebind()
+            if caches is not None and self._cache_sh is not None:
+                caches = reshard_tree(caches, self._cache_sh)
+            return caches
+
     def snapshot_caches(self, caches) -> dict:
         """Host snapshot of an in-flight cache tree, taken between
         :meth:`step` calls: it outlives the replica, and
-        :meth:`restore_caches` puts the same step back on any engine."""
+        :meth:`restore_caches` puts the same step back on any engine (any
+        slice).  Collective over the world on a mesh."""
         with _span(self.tracer, "engine.snapshot"):
-            return {name: c.cpu().numpy() for name, c in caches.items()}
+            src = mesh_root(self.mesh) if self.mesh is not None else None
+            return {name: c.cpu().numpy() for name, c in
+                    to_plain(caches, self.device, src=src).items()}
 
     def restore_caches(self, caches) -> dict:
-        """A :meth:`snapshot_caches` tree back on this engine's device."""
+        """A :meth:`snapshot_caches` tree back on this engine: on its
+        device, or laid out on its slice."""
         with _span(self.tracer, "engine.restore"):
-            return {name: torch.from_numpy(c).to(self.device)
-                    for name, c in caches.items()}
+            tree = {name: torch.from_numpy(np.ascontiguousarray(c))
+                    .to(self.device) for name, c in caches.items()}
+            if self._cache_sh is not None:
+                tree = reshard_tree(tree, self._cache_sh)
+            return tree
 
     def start(self, prompts: np.ndarray):
         """Prefill: (B, S0) prompts → (logits (B, V), caches padded to the
         decode lanes).  With :meth:`step`, the resumable half of
-        :meth:`generate`."""
-        B, S0 = prompts.shape
-        with torch.inference_mode(), _span(self.tracer, "engine.prefill",
-                                           B=int(B), S0=int(S0)):
-            logits, caches = self._prefill(
-                torch.as_tensor(np.asarray(prompts, dtype=np.int32),
-                                device=self.device))
-            return logits, self._pad_caches(caches, max(B, self.lanes))
+        :meth:`generate`: a caller can pause, migrate the caches through
+        :meth:`reshard` and resume on another slice.  On a mesh the logits
+        are whole on every rank (collective over the world)."""
+        B = prompts.shape[0]
+        logits = None
+        with self._ctx():
+            if self._member:
+                logits, caches = self._start_local(prompts)
+            else:
+                caches = self._placeholder_caches(max(B, self.lanes))
+        logits = self._publish(logits, (B, self.cfg.vocab_size),
+                               self._logit_dtype())
+        return logits, caches
+
+    def _logit_dtype(self) -> torch.dtype:
+        return dtype_of(self.cfg.compute_dtype)
 
     def _pad_caches(self, caches, rows: int) -> dict:
         out = {}
         for name, c in caches.items():
+            if is_dtensor(c):
+                # the lane dim is never sharded: pad each rank's shard
+                loc = c.to_local()
+                pad = torch.zeros((loc.shape[0], rows, *loc.shape[2:]),
+                                  dtype=loc.dtype, device=loc.device)
+                pad[:, :loc.shape[1]] = loc
+                out[name] = from_local_like(pad, c,
+                                            (c.shape[0], rows, *c.shape[2:]))
+                continue
             pad = torch.zeros((c.shape[0], rows, *c.shape[2:]), dtype=c.dtype,
                               device=c.device)
             pad[:, :c.shape[1]] = c
@@ -137,28 +320,38 @@ class ServeEngine:
         tok = torch.as_tensor(np.asarray(tok), device=self.device)
         B = tok.shape[0]
         rows = _lane_rows(caches)
-        with torch.inference_mode(), _span(self.tracer, "engine.decode_step",
-                                           pos=pos):
-            lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
-                                   device=self.device)
-            lane_tok[:B] = tok
-            lane_pos = torch.zeros(rows, dtype=torch.int32, device=self.device)
-            lane_pos[:B] = pos
-            logits, caches = self._decode(caches, lane_tok, lane_pos)
-            return logits[:B], caches
+        logits = None
+        with self._ctx(), _span(self.tracer, "engine.decode_step", pos=pos):
+            if self._member:
+                lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
+                                       device=self.device)
+                lane_tok[:B] = tok
+                lane_pos = torch.zeros(rows, dtype=torch.int32,
+                                       device=self.device)
+                lane_pos[:B] = pos
+                logits, caches = self._decode(caches, lane_tok, lane_pos)
+                logits = gathered(logits)[:B]
+        logits = self._publish(logits, (B, self.cfg.vocab_size),
+                               self._logit_dtype())
+        return logits, caches
 
     def generate(self, prompts: np.ndarray, new_tokens: int,
                  greedy: bool = True, generator: torch.Generator | None = None):
         """prompts: (B, S0) int32 → (B, S0+new_tokens) generated ids.
 
         Greedy by default; ``greedy=False`` samples from the softmax with
-        ``generator`` (a ``torch.Generator`` on the engine's device)."""
+        ``generator`` (a ``torch.Generator`` on the engine's device).  On a
+        mesh only the slice's ranks decode; the tokens reach every rank."""
         if not greedy and generator is None:
             raise ValueError("sampling needs an explicit torch.Generator")
         B, S0 = prompts.shape
+        if not self._member:
+            gen = self._publish(None, (B, new_tokens), torch.int32)
+            return np.concatenate([np.asarray(prompts, dtype=np.int32),
+                                   gen.cpu().numpy()], axis=1)
         tr = self.tracer
-        with torch.inference_mode():
-            logits, caches = self.start(prompts)     # the engine.prefill span
+        with self._ctx():
+            logits, caches = self._start_local(prompts)  # engine.prefill span
             rows = _lane_rows(caches)
             lane_tok = torch.zeros((rows, 1), dtype=torch.int32,
                                    device=self.device)
@@ -176,14 +369,26 @@ class ServeEngine:
                 lane_pos[:B] = S0 + i
                 t0 = time.perf_counter()
                 logits, caches = self._decode(caches, lane_tok, lane_pos)
-                logits = logits[:B]
+                logits = gathered(logits)[:B]
                 if tr is not None:
                     tr.complete("engine.decode_step", t0,
                                 time.perf_counter() - t0, pos=S0 + i)
-            gen = (torch.stack(out, dim=1).cpu().numpy() if out
-                   else np.zeros((B, 0), dtype=np.int32))
-        return np.concatenate([np.asarray(prompts, dtype=np.int32), gen],
-                              axis=1)
+            gen = (torch.stack(out, dim=1) if out
+                   else torch.zeros((B, 0), dtype=torch.int32,
+                                    device=self.device))
+        gen = self._publish(gen, (B, new_tokens), torch.int32)
+        return np.concatenate([np.asarray(prompts, dtype=np.int32),
+                               gen.cpu().numpy()], axis=1)
+
+    def _start_local(self, prompts: np.ndarray):
+        """:meth:`start` on the slice's ranks alone (no broadcast)."""
+        B, S0 = prompts.shape
+        with _span(self.tracer, "engine.prefill", B=int(B), S0=int(S0)):
+            logits, caches = self._prefill(
+                torch.as_tensor(np.asarray(prompts, dtype=np.int32),
+                                device=self.device))
+            return (gathered(logits),
+                    self._pad_caches(caches, max(B, self.lanes)))
 
     # -- continuous batching (block-paged KV pool; see serve/paging.py) -----
 
@@ -264,8 +469,8 @@ class ReplicaHandle:
 
     ``speed`` scales the host-scale fallback estimate.  ``arch`` /
     ``mesh_shape`` and the aggregate rates are the cost-model key and
-    rates a ``CostModelRegistry`` reads (``mesh_shape`` stays None until
-    replicas are mesh-backed).
+    rates a ``CostModelRegistry`` reads; ``mesh_shape`` comes from a
+    mesh-backed engine's slice.
     """
 
     name: str
@@ -278,6 +483,25 @@ class ReplicaHandle:
     compute_tflops: float | None = None  # aggregate effective rates
     hbm_gbps: float | None = None
     ici_gbps: float = 0.0
+
+    def __post_init__(self):
+        if self.mesh_shape is None:
+            self.mesh_shape = getattr(self.engine, "mesh_shape", None)
+
+    def sync_mesh_identity(self) -> None:
+        """Re-derive the scheduling identity after ``engine.reshard``: the
+        cost-model key follows the new slice, and ``speed`` and the
+        aggregate rates scale with its device count."""
+        old_n = math.prod(self.mesh_shape) if self.mesh_shape else 1
+        self.mesh_shape = self.engine.mesh_shape
+        new_n = math.prod(self.mesh_shape) if self.mesh_shape else 1
+        if new_n != old_n:
+            scale = new_n / old_n
+            self.speed *= scale
+            if self.compute_tflops:
+                self.compute_tflops *= scale
+            if self.hbm_gbps:
+                self.hbm_gbps *= scale
 
 
 @dataclass
@@ -594,3 +818,40 @@ class HeftFrontEnd:
             "latency_s": latency,
         }
         return [outputs[i] for i in range(len(requests))], stats
+
+
+def mesh_backed_fleet(cfg: ModelConfig, params, mesh_shapes, *,
+                      max_len: int = 128, lanes: int = 8,
+                      arch: str | None = None, axes: MeshAxes | None = None,
+                      devices=None, chip_tflops: float = 1.0,
+                      chip_hbm_gbps: float = 1.0, ici_gbps: float = 0.0,
+                      return_spare: bool = False, device=None):
+    """Carve the world into mesh slices and build one replica each.
+
+    ``mesh_shapes`` like ``[(1, 1), (2, 1), (2, 2)]`` give replicas of
+    mixed parallelism, whose aggregate rates (and HEFT_RT speed fallback)
+    scale with the slice size.  ``params`` (one meshless model, the same
+    on every rank) seeds every replica.  ``devices`` is the pool of global
+    ranks (the world by default), ``device`` the meshes' device type (the
+    card unless told otherwise); ``return_spare=True`` also returns the
+    ranks left over.  Collective over the world."""
+    from repro_torch.launch.mesh import slice_device_pool
+
+    ax = axes or MeshAxes()
+    meshes, spare = slice_device_pool(mesh_shapes, (ax.data, ax.model),
+                                      devices=devices, return_remainder=True,
+                                      device=device)
+    fleet = []
+    for i, mesh in enumerate(meshes):
+        shape = tuple(mesh.mesh.shape)
+        n = math.prod(shape)
+        eng = ServeEngine(cfg, params, max_len=max_len, lanes=lanes,
+                          mesh=mesh, axes=ax)
+        fleet.append(ReplicaHandle(
+            f"{cfg.name}@{'x'.join(map(str, shape))}#{i}", eng,
+            speed=float(n), arch=arch or cfg.name,
+            compute_tflops=n * chip_tflops, hbm_gbps=n * chip_hbm_gbps,
+            ici_gbps=ici_gbps))
+    if return_spare:
+        return fleet, spare
+    return fleet

@@ -67,6 +67,21 @@ Pages are also the migration and recovery unit: :meth:`PagedRuntime
 .snapshot_slot` captures one request's pages, state rows and decode state
 as numpy, and :meth:`PagedRuntime.restore_slot` re-admits it on any engine
 with room.
+
+**On a mesh.**  A mesh-backed engine's pools are ``DTensor``s laid out by
+``page_pspecs`` (the cache rule with the page axis replicated: KV heads and
+Mamba's d_inner over ``model``), and :meth:`PagedRuntime.rebind` places
+them again after ``ServeEngine.reshard``.  The page gather, the token
+scatter and the admission write have no ``DTensor`` rule; they index the
+page / slot axes, which are never sharded, so they run on each rank's
+local shard (``dist.hints.local_call``) in the same layout as the dense
+view.  The decode step itself runs on ``DTensor``s under the replica's
+policy; its logits are gathered whole before the argmax, and the
+``fused_decision`` kernel takes plain local tensors only (its operands and
+the fabric's registers are replicated host uploads).  Only the slice's
+ranks compute; the packed int32 buffer of the tick goes to the other ranks
+of the world by broadcast, which also carries the new ``T_avail``
+registers, so every rank's fabric adopts the same decision.
 """
 
 from __future__ import annotations
@@ -78,9 +93,20 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.dist.hints import gathered, local_call
+from repro_torch.dist.sharding import (mesh_root, named, page_pspecs,
+                                       reshard_tree, to_plain)
 from repro_torch.kernels import decision_hw, pack_tick_outputs
+from repro_torch.kernels.fused_decision import unpack_decision
 from repro_torch.models.model import cache_specs
 from repro_torch.obs.device import accumulate_counters
+
+def _take_shape(pool, name: str, row) -> tuple:
+    """Shape (without the layer axis) of one slot's pages or state row."""
+    if name in STATE_LEAVES:
+        return tuple(pool.shape[2:])
+    return (len(row), *pool.shape[2:])
+
 
 # Leaf classification by name, as the reference's.
 PAGED_LEAVES = frozenset({"k", "v", "ckv", "kr"})
@@ -220,6 +246,24 @@ class PagedRuntime:
         self.pool = PagePool(engine.cfg, max_batch, page_size, engine.max_len,
                              num_pages=num_pages, device=engine.device)
         self.slots: dict[int, _Slot] = {}
+        self._bind()
+
+    def _bind(self) -> None:
+        """Place the pools for the engine's current mesh slice (``page_pspecs``
+        layouts); unmeshed they stay plain tensors on its device."""
+        eng = self.engine
+        if eng.mesh is None:
+            self._specs = dict.fromkeys(self.pool.pools)
+            return
+        self._specs = page_pspecs(eng.cfg, eng.axes)
+        self.pool.pools = reshard_tree(self.pool.pools,
+                                       named(eng.mesh, self._specs))
+
+    def rebind(self) -> None:
+        """Re-place the pools after ``ServeEngine.reshard`` (which brings
+        them whole to every rank first); in-flight slots keep decoding
+        token-identically on the new slice."""
+        self._bind()
 
     # -- in-flight API ------------------------------------------------------
 
@@ -241,20 +285,33 @@ class PagedRuntime:
         if not self.pool.can_admit(total):
             return None
         eng = self.engine
-        with torch.inference_mode():
-            logits, dense = eng._prefill(
-                torch.from_numpy(prompt[None]).to(eng.device))
+        first = None
+        if not eng._member:
             slot, pages = self.pool.reserve(total)
-            pp, ps = self.pool.pages_per_slot, self.pool.page_size
-            row = torch.from_numpy(self.pool.table[slot]).to(eng.device)
-            for name, pool in self.pool.pools.items():
-                d = dense[name][:, 0]                 # (L, ...)
-                if name in STATE_LEAVES:
-                    pool[:, slot] = d
-                else:
-                    pool[:, row.long()] = d.reshape(d.shape[0], pp, ps,
-                                                    *d.shape[2:])
-            first = int(logits[0].argmax())
+        else:
+            with eng._ctx():
+                logits, dense = eng._prefill(
+                    torch.from_numpy(prompt[None]).to(eng.device))
+                slot, pages = self.pool.reserve(total)
+                pp, ps = self.pool.pages_per_slot, self.pool.page_size
+                row = torch.from_numpy(self.pool.table[slot]).to(
+                    eng.device).long()
+
+                def write(pool, d, name):
+                    d = d[:, 0]                       # (L, ...)
+                    if name in STATE_LEAVES:
+                        pool[:, slot] = d
+                    else:
+                        pool[:, row] = d.reshape(d.shape[0], pp, ps,
+                                                 *d.shape[2:])
+
+                for name, pool in self.pool.pools.items():
+                    spec = self._specs[name]
+                    local_call(lambda p, d: write(p, d, name),
+                               (pool, dense[name]), (spec, spec), None)
+                first = gathered(logits)[0].argmax().reshape(1).to(
+                    torch.int32)
+        first = int(eng._publish(first, (1,), torch.int32)[0])
         self.slots[slot] = _Slot(prompt=prompt, new_tokens=int(new_tokens),
                                  pages=pages, tokens=[first])
         return slot
@@ -306,57 +363,97 @@ class PagedRuntime:
         eng = self.engine
         lanes = eng.lanes
         pp, ps = self.pool.pages_per_slot, self.pool.page_size
-        with torch.inference_mode():
-            # Uploads first: a copy from pageable host memory waits for the
-            # stream, so it must not queue behind the decode step.
-            ints = self._lane_inputs(active)
-            if sched is not None:
-                avg, exec_times, fab = sched
-                (a_p, ex_p, _, avail, mask,
-                 counters, p_valid) = fab.tick_decision_inputs(avg, exec_times)
-                a_d, ex_d = self._upload_event(a_p, ex_p)
-            table = ints[:lanes * pp].view(lanes, pp).long()
-            pos = ints[lanes * pp:lanes * (pp + 1)]
-            tok = ints[lanes * (pp + 1):lanes * (pp + 2)].view(lanes, 1)
-            slot_ids = ints[lanes * (pp + 2):].long()
-            dense = {}
-            for name, pool in self.pool.pools.items():
-                if name in STATE_LEAVES:
-                    dense[name] = pool[:, slot_ids]
+        if sched is not None:
+            avg, exec_times, fab = sched
+            (a_p, ex_p, _, avail, mask,
+             counters, p_valid) = fab.tick_decision_inputs(avg, exec_times)
+        buf = None
+        if eng._member:
+            with eng._ctx():
+                # Uploads first: a copy from pageable host memory waits for
+                # the stream, so it must not queue behind the decode step.
+                ints = self._lane_inputs(active)
+                if sched is not None:
+                    a_d, ex_d = self._upload_event(a_p, ex_p)
+                toks = self._tick(ints)
+                if sched is None:
+                    buf = toks
                 else:
-                    dense[name] = pool[:, table].reshape(
-                        pool.shape[0], lanes, pp * ps, *pool.shape[3:])
-            logits, dense = eng._decode(dense, tok, pos)
-            rows = torch.arange(lanes, device=eng.device)
-            page = table[rows, (pos // ps).long()]
-            off = (pos % ps).long()
-            for name, pool in self.pool.pools.items():
-                if name in STATE_LEAVES:
-                    # scratch lanes all write the scratch slot: harmless
-                    pool[:, slot_ids] = dense[name]
-                else:
-                    pool[:, page, off] = dense[name][:, rows, pos.long()]
-            toks = logits.argmax(dim=-1).to(torch.int32)
-            decision = None
-            if sched is None:
-                nxt = toks.cpu().numpy()
-            else:
-                res = decision_hw(a_d, ex_d, avail, mask, out_avail=avail)
+                    res = decision_hw(a_d, ex_d, avail, mask, out_avail=avail)
+                    if counters is not None:
+                        valid = (torch.arange(len(a_p), device=eng.device)
+                                 < len(avg))
+                        accumulate_counters(counters, res.assignment,
+                                            res.new_avail, valid, p_valid)
+                    # The tick's one device→host copy: tokens and decision.
+                    buf = pack_tick_outputs(toks, res)
+        width = lanes + (0 if sched is None else 4 * len(a_p) + len(avail))
+        host = eng._publish(buf, (width,), torch.int32).cpu().numpy()
+        nxt = host[:lanes]
+        decision = None
+        if sched is not None:
+            if not eng._member:
+                # adopt the slice's decision: its new registers ride in the
+                # buffer, bit for bit
+                _, assignment, _, _, new = unpack_decision(host[lanes:],
+                                                           len(avail))
+                avail.copy_(torch.from_numpy(new).to(avail.device))
                 if counters is not None:
-                    valid = torch.arange(len(a_p), device=eng.device) < len(avg)
-                    accumulate_counters(counters, res.assignment,
-                                        res.new_avail, valid, p_valid)
-                # The tick's one device→host copy: tokens and decision.
-                buf = pack_tick_outputs(toks, res).cpu().numpy()
-                nxt = buf[:lanes]
-                decision = fab.commit_tick_decision(len(avg), buf[lanes:],
-                                                    res.new_avail, counters)
+                    valid = torch.arange(len(a_p), device=avail.device) \
+                        < len(avg)
+                    accumulate_counters(
+                        counters, torch.from_numpy(assignment).to(
+                            avail.device), avail, valid, p_valid)
+                res_avail = avail
+            else:
+                res_avail = res.new_avail
+            decision = fab.commit_tick_decision(len(avg), host[lanes:],
+                                                res_avail, counters)
         out = {}
         for i, s in enumerate(active):
             t = int(nxt[i])
             self.slots[s].tokens.append(t)
             out[s] = t
         return out if sched is None else (out, decision)
+
+    def _tick(self, ints: torch.Tensor) -> torch.Tensor:
+        """The decode step of a tick from its uploaded int32 inputs: gather
+        pages → dense view → ``decode_step`` with per-lane positions →
+        scatter the written token and state rows → the (lanes,) argmax."""
+        eng = self.engine
+        lanes = eng.lanes
+        pp, ps = self.pool.pages_per_slot, self.pool.page_size
+        table = ints[:lanes * pp].view(lanes, pp).long()
+        pos = ints[lanes * pp:lanes * (pp + 1)]
+        tok = ints[lanes * (pp + 1):lanes * (pp + 2)].view(lanes, 1)
+        slot_ids = ints[lanes * (pp + 2):].long()
+
+        def gather(pool, name):
+            if name in STATE_LEAVES:
+                return pool[:, slot_ids]
+            return pool[:, table].reshape(pool.shape[0], lanes, pp * ps,
+                                          *pool.shape[3:])
+
+        dense = {name: local_call(lambda p: gather(p, name), (pool,),
+                                  (self._specs[name],), self._specs[name])
+                 for name, pool in self.pool.pools.items()}
+        logits, dense = eng._decode(dense, tok, pos)
+        rows = torch.arange(lanes, device=eng.device)
+        page = table[rows, (pos // ps).long()]
+        off = (pos % ps).long()
+
+        def scatter(pool, d, name):
+            if name in STATE_LEAVES:
+                # scratch lanes all write the scratch slot: harmless
+                pool[:, slot_ids] = d
+            else:
+                pool[:, page, off] = d[:, rows, pos.long()]
+
+        for name, pool in self.pool.pools.items():
+            spec = self._specs[name]
+            local_call(lambda p, d: scatter(p, d, name), (pool, dense[name]),
+                       (spec, spec), None)
+        return gathered(logits).argmax(dim=-1).to(torch.int32)
 
     def retire(self, slot: int) -> np.ndarray:
         """Free the slot's pages and return the full (S0+new_tokens,) ids."""
@@ -372,10 +469,24 @@ class PagedRuntime:
         dense cache), its state rows and its decode state.  O(request
         length), not O(pool)."""
         rec = self.slots[slot]
+        eng = self.engine
         row = torch.from_numpy(self.pool.table[slot]).long()
-        pages = {name: (pool[:, slot] if name in STATE_LEAVES
-                        else pool[:, row.to(pool.device)]).cpu().numpy()
-                 for name, pool in self.pool.pools.items()}
+
+        def take(pool, name):
+            return (pool[:, slot] if name in STATE_LEAVES
+                    else pool[:, row.to(pool.device)])
+
+        src = None if eng.mesh is None else mesh_root(eng.mesh)
+        pages = {}
+        for name, pool in self.pool.pools.items():
+            spec = self._specs[name]
+            vals = (local_call(lambda p: take(p, name), (pool,), (spec,),
+                               spec) if eng._member
+                    else torch.empty((pool.shape[0],
+                                      *_take_shape(pool, name, row)),
+                                     dtype=pool.dtype, device="meta"))
+            pages[name] = to_plain({name: vals}, eng.device,
+                                   src=src)[name].cpu().numpy()
         return {"pages": pages, "prompt": rec.prompt.copy(),
                 "new_tokens": rec.new_tokens, "tokens": list(rec.tokens)}
 
@@ -388,13 +499,25 @@ class PagedRuntime:
         if not self.pool.can_admit(total):
             return None
         slot, pages = self.pool.reserve(total)
-        row = torch.from_numpy(self.pool.table[slot]).long()
-        for name, pool in self.pool.pools.items():
-            vals = torch.from_numpy(snap["pages"][name]).to(pool.device)
+        eng = self.engine
+        row = torch.from_numpy(self.pool.table[slot]).long().to(eng.device)
+
+        def put(pool, vals, name):
             if name in STATE_LEAVES:
                 pool[:, slot] = vals
             else:
-                pool[:, row.to(pool.device)] = vals
+                pool[:, row] = vals
+
+        for name, pool in self.pool.pools.items():
+            vals = torch.from_numpy(np.ascontiguousarray(
+                snap["pages"][name])).to(eng.device)
+            spec = self._specs[name]
+            if spec is not None:
+                vals = reshard_tree({name: vals},
+                                    named(eng.mesh, {name: spec}))[name]
+            if eng._member:
+                local_call(lambda p, v: put(p, v, name), (pool, vals),
+                           (spec, spec), None)
         self.slots[slot] = _Slot(prompt=np.asarray(snap["prompt"],
                                                    dtype=np.int32),
                                  new_tokens=int(snap["new_tokens"]),

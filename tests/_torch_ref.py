@@ -16,6 +16,7 @@ Helpers shared with the scripts: ``rand_tree`` draws a parameter tree from
 from __future__ import annotations
 
 import os
+import signal
 import subprocess
 import sys
 import textwrap
@@ -61,15 +62,114 @@ def flat_tree(tree, prefix, out):
 '''
 
 
-def run_reference(code: str, out: Path, timeout: int = 600):
+# Opt-in preamble for the reference's pod path on jax 0.9 (the reference
+# runs it on the jax it was written for): ``jax.make_mesh`` now gives
+# ``Explicit`` axes, under which ``with_sharding_constraint`` in the
+# trainer's ``_pod_split`` asserts, and ``jax.experimental.shard_map``
+# lost ``auto=``.  Inside the subprocess only, meshes are built with
+# ``Auto`` axes and ``shard_map`` forwards to ``jax.shard_map``.
+JAX09_SHIMS = '''
+import jax
+import jax.experimental.shard_map as _sm
+
+def _auto_mesh(shape, names, *args, devices=None, **kw):
+    devs = devices if devices is not None else jax.devices()
+    n = int(np.prod(shape))
+    return jax.sharding.Mesh(np.array(list(devs)[:n]).reshape(shape), names)
+
+def _shard_map(f, mesh, in_specs, out_specs, check_rep=True, auto=frozenset()):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs,
+                         axis_names=set(mesh.axis_names) - set(auto),
+                         check_vma=check_rep)
+
+jax.make_mesh = _auto_mesh
+_sm.shard_map = _shard_map
+'''
+
+
+def run_reference(code: str, out: Path, timeout: int = 600, *,
+                  devices: int | None = None, shims: bool = False):
     """Run ``code`` (after :data:`PREAMBLE`) with ``OUT`` bound to ``out``;
-    returns the ``.npz`` it wrote."""
+    returns the ``.npz`` it wrote.  ``devices``: the host platform's device
+    count (``XLA_FLAGS``, set before jax starts); ``shims``: add
+    :data:`JAX09_SHIMS` after the preamble."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    script = PREAMBLE + f"OUT = {str(out)!r}\n" + textwrap.dedent(code)
+    if devices is not None:
+        env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count="
+                            f"{devices}")
+    script = (PREAMBLE + (JAX09_SHIMS if shims else "")
+              + f"OUT = {str(out)!r}\n" + textwrap.dedent(code))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return dict(np.load(out))
+
+
+# A world of gloo ranks on the CPU for the port's distributed tests: the
+# script below runs ``code`` in every rank (``RANK`` / ``WORLD`` bound, the
+# process group joined through a FileStore in the test's directory, so
+# parallel test workers never share a port; ``tests/`` importable), and
+# each rank returns the dict ``RESULT`` it fills as an ``.npz``.
+_RANKS = '''
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _worker(rank, world, store, out, code_path):
+    with open(code_path) as f:
+        code = f.read()
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    RANK, WORLD, RESULT = rank, world, {}
+    try:
+        exec(compile(code, "<rank code>", "exec"), dict(
+            RANK=RANK, WORLD=WORLD, RESULT=RESULT, np=np, torch=torch,
+            dist=dist))
+    finally:
+        np.savez(f"{out}/rank{rank}.npz", **RESULT)
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    world, store, out, code_path = sys.argv[1:5]
+    mp.spawn(_worker, args=(int(world), store, out, code_path),
+             nprocs=int(world))
+'''
+
+
+def run_ranks(code: str, world: int, tmp: Path, timeout: int = 300
+              ) -> list[dict]:
+    """Run ``code`` in ``world`` gloo ranks on the CPU; returns each rank's
+    ``RESULT`` dict.  A rank that hangs fails the test at ``timeout``
+    seconds (the whole process group is killed)."""
+    tmp = Path(tmp)
+    (tmp / "ranks_main.py").write_text(_RANKS)
+    (tmp / "ranks_code.py").write_text(textwrap.dedent(code))
+    store = tmp / "store"
+    if store.exists():
+        store.unlink()
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"),
+                                           str(REPO / "tests")]))
+    proc = subprocess.Popen(
+        [sys.executable, str(tmp / "ranks_main.py"), str(world), str(store),
+         str(tmp), str(tmp / "ranks_code.py")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=REPO,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"ranks did not finish in {timeout} s")
+    assert proc.returncode == 0, err[-4000:]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
 def unflatten(flat: dict, prefix: str) -> dict:

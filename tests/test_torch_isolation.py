@@ -31,7 +31,7 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _modules()
-    assert len(mods) >= 58
+    assert len(mods) >= 63
     for new in ("repro_torch.kernels.oddeven_sort",
                 "repro_torch.kernels.eft_select",
                 "repro_torch.core.heft_static", "repro_torch.core.heft_energy",
@@ -48,7 +48,11 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.models.convert", "repro_torch.models.mamba",
                 "repro_torch.models.moe", "repro_torch.serve",
                 "repro_torch.serve.paging", "repro_torch.serve.engine",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.dist",
+                "repro_torch.dist.hints", "repro_torch.dist.sharding",
+                "repro_torch.dist.compression", "repro_torch.launch.mesh",
+                "repro_torch.launch.train", "repro_torch.train.trainer",
+                "repro_torch.checkpoint.checkpointer"):
         assert new in mods, new
     code = (
         "import importlib, json, sys\n"
@@ -112,7 +116,9 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                "serve/engine.py", "launch/serve.py"]
     slice_5 += [f"configs/{p.name}" for p in
                 (REPO / "src" / "repro" / "configs").glob("*.py")]
-    for rel in slice_1 + slice_2 + slice_5:
+    slice_8 = ["dist/__init__.py", "dist/hints.py", "dist/sharding.py",
+               "dist/compression.py", "launch/mesh.py"]
+    for rel in slice_1 + slice_2 + slice_5 + slice_8:
         assert (REPO / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     for cu in ("heft_fused.cu", "fused_decision.cu", "oddeven_sort.cu",

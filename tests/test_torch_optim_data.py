@@ -326,13 +326,18 @@ def test_int8_opt_state_checkpoint_roundtrip(tmp_path):
 
 def test_checkpoint_restore_casts_to_the_template_and_raises_on_a_mesh(
         tmp_path):
+    """restore casts every leaf to its template's dtype; a ``None``
+    sharding leaves the leaf as restored; a missing directory raises."""
     ck = Checkpointer(str(tmp_path))
     ck.save(4, {"w": torch.arange(6, dtype=torch.float32)}, blocking=True)
     out = ck.restore({"w": torch.zeros(6, dtype=torch.float64)}, device="cpu")
     assert out["w"].dtype == torch.float64
     assert torch.equal(out["w"], torch.arange(6, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ck.restore({"w": torch.zeros(6)}, device="cpu", shardings={"w": None})
+    # shardings place leaves on a mesh (tests/test_torch_dist.py); a None
+    # leaf stays as it was restored, as in the reference's reshard_tree
+    kept = ck.restore({"w": torch.zeros(6)}, device="cpu",
+                      shardings={"w": None})
+    assert torch.equal(kept["w"], torch.arange(6, dtype=torch.float32))
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore({}, device="cpu")
 

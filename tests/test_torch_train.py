@@ -560,11 +560,25 @@ def test_microbatches_accumulate_in_f32_buffers(monkeypatch):
 
 
 def test_pods_and_meshes_wait_for_dist():
+    """The pod step needs its mesh (tests/test_torch_train_compress.py runs
+    it on gloo ranks); without a pod axis the knobs give the plain step, as
+    the reference's do."""
     cfg = AdamWConfig()
-    for kw in (dict(pod_axis="pod"), dict(compress_pods=True),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make_train_step(TINY, cfg, **kw)
+    with pytest.raises(ValueError, match="needs the mesh"):
+        make_train_step(TINY, cfg, pod_axis="pod")
+    batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(
+        DataConfig(vocab_size=64, seq_len=16, global_batch=2)).batch_at(0)
+        .items()}
+    outs = []
+    for kw in (dict(), dict(compress_pods=True), dict(mesh=object())):
+        params = init_params(TINY, device="cpu")
+        opt = init_opt_state(dict(params.named_parameters()), cfg)
+        step = make_train_step(TINY, cfg, **kw)
+        p, _, residual, _ = step(params, opt, None, batch)
+        assert residual is None
+        outs.append(torch.cat([x.detach().reshape(-1)
+                               for x in p.parameters()]))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
     with pytest.raises(ValueError):
         make_train_step(TINY, cfg, microbatches=0)
     with pytest.raises(ValueError, match="microbatches"):
@@ -627,10 +641,13 @@ def test_trainer_plain_path_residual_none_roundtrip(tmp_path):
 
 
 def test_trainer_mesh_and_compress_pods_wait_for_dist(tmp_path):
-    for kw in (dict(mesh_shape=(2,)), dict(compress_pods=True),
-               dict(mesh_shape=(1,), compress_pods=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            _trainer(str(tmp_path), **kw)
+    """A mesh needs a process group (the pod Trainer runs on gloo ranks in
+    tests/test_torch_train_compress.py), and compress_pods needs a mesh, as
+    in the reference."""
+    with pytest.raises(ValueError, match="process group"):
+        _trainer(str(tmp_path), mesh_shape=(2,))
+    with pytest.raises(ValueError, match="requires mesh_shape"):
+        _trainer(str(tmp_path), compress_pods=True)
 
 
 def test_trainer_records_step_spans_and_histogram(tmp_path):
@@ -679,7 +696,11 @@ def test_launcher_trains_on_the_cpu_with_a_valid_trace(tmp_path,
                                       "train.step", "--require-metrics",
                                       "train.step_s"])
     check.main()
-    for flag in (["--mesh-shape", "2,2"], ["--compress-pods"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh runs under torchrun (tests/test_torch_train_compress.py);
+    # compress_pods needs a mesh
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for flag, match in ((["--mesh-shape", "2,2"], "torchrun"),
+                        (["--compress-pods"], "requires mesh_shape")):
+        with pytest.raises(ValueError, match=match):
             launch_train.main(["--device", "cpu", "--steps", "1",
                                "--ckpt-dir", str(tmp_path / "x")] + flag)
