@@ -102,6 +102,31 @@ the first disagreement:
   on the mesh, and a ``reshard(None)`` and back to ``(1, 1)`` in
   mid-generation bitwise.  The meshed tick is timed beside the meshless
   one, with each tick's dispatched aten ops and DTensor redistributions;
+* chaos (after dist-serve has freed its weights) — the serve launcher as a
+  user runs it, ``repro_torch.launch.serve.main`` with ``--arch
+  deepseek-7b --full-width --paged --fused-scheduler``, 8 requests and
+  ``--chaos`` on a timeline of a replica loss (a unique name prefix), a 2x
+  straggler and a degraded spine link, ``--min-goodput 90``: no
+  ``SystemExit`` (the launcher checks request 0 against the dense oracle
+  and the failover re-serve token for token), ``fused_decision`` launched
+  in the ticks and ``heft_fused`` by the twin's policy, and the twin's
+  goodput, re-queued and unserved counts on the card equal to the same
+  twin on the CPU, float32 and float64;
+* examples — each of ``examples/port/`` as a subprocess on the card and
+  twice with ``--device cpu`` (the float32 plain version under
+  ``REPRO_TORCH_FABRIC_BACKEND=torch``, and the float64 host path), six
+  at once: every run exits 0, and the numbers the card run prints (its
+  decisions and SimResults) equal the float32 CPU run's; lines where the
+  float64 run differs are printed;
+* dryrun — ``python -m repro_torch.launch.dryrun`` for deepseek-7b at
+  ``decode_32k`` (16x16 and 2x16x16) and ``prefill_32k`` (16x16), two
+  processes at once (a fake world needs a process of its own): no cell
+  with an error, rank 0's FLOPs between the weights' products and 1.25x
+  of those plus the attention term, the cells covering a (deepseek-7b,
+  16x16) replica in ``CostModelRegistry``; then the recorder around one
+  real full-width ``decode_step`` on the card (4 lanes, a 2048-token
+  cache) counts the FLOPs, bytes and ops it counts on ``meta`` tensors at
+  those shapes, and the step is timed;
 * dist-train (after train) — two spawned processes on the one card over a
   ``gloo`` group as two pods (NCCL refuses two ranks on one card; gloo
   runs all_reduce and broadcast on its tensors through the host):
@@ -118,8 +143,8 @@ the first disagreement:
   ``Trainer``'s residual saved at pod 2 and restored here at pod 1 keeps
   Σe/n.  Step times and the reductions' alone are printed.
 
-The fabric, runtime, queue-event, serving, the serve runs and dist-serve
-are the main path of the four kernels: the kernels' launch counters are zeroed just before each and read
+The fabric, runtime, queue-event, serving, the serve runs, dist-serve and
+chaos are the main path of the four kernels: the kernels' launch counters are zeroed just before each and read
 just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
 and at the main path's one-event shapes (D = 256, 223 real slots in the
@@ -1407,6 +1432,346 @@ def phase_dist_serve(torch, K, cfg, params, seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: chaos (the serve launcher's --chaos path at full width)
+# ---------------------------------------------------------------------------
+
+# A replica loss named by a unique prefix of replica 1, replica 2 at half
+# speed for 1 s (a straggler's slowdown factor of 2), and a degraded spine
+# link: every kind of event the twin replays, the link on its spine.
+CHAOS_TIMELINE = {"events": [
+    {"t": 0.8, "kind": "replica_loss", "target": "replica1"},
+    {"t": 0.3, "kind": "straggler", "target": "replica2", "duration_s": 1.0,
+     "factor": 2.0},
+    {"t": 0.2, "kind": "link_degrade", "target": "pod0:spine",
+     "duration_s": 1.0, "factor": 0.5},
+]}
+CHAOS_SLO_S = 2.0
+TWIN_KEYS = ("goodput", "goodput_clean", "requeued", "unserved")
+
+
+def phase_chaos(torch, K, card: str) -> dict:
+    """``repro_torch.launch.serve.main`` as a user runs it: deepseek-7b at
+    full width (``--full-width``), ``--paged --fused-scheduler``, 8
+    requests, ``--chaos`` on :data:`CHAOS_TIMELINE`, ``--min-goodput 90``.
+    The launcher itself checks request 0 against the dense oracle and the
+    failover re-serve token for token (``SystemExit`` otherwise).  Here:
+    no ``SystemExit``, the published widths, ``fused_decision`` launched in
+    the ticks and ``heft_fused`` by the twin's policy, and the twin's
+    goodput, re-queued and unserved counts on the card equal to the same
+    twin on the CPU, in the card's float32 arithmetic (the kernels' plain
+    version) and on the float64 host path."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.sched_integration import (load_failure_timeline,
+                                               make_policy_fabric)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "chaos.json"
+        path.write_text(json.dumps(CHAOS_TIMELINE))
+        argv = ["--arch", "deepseek-7b", "--full-width", "--paged",
+                "--fused-scheduler", "--requests", str(SERVE_REQUESTS),
+                "--chaos", str(path), "--min-goodput", "90",
+                "--slo-s", str(CHAOS_SLO_S)]
+        if DEVICE != "cuda":
+            argv += ["--device", DEVICE]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = launcher.main(argv)
+        except SystemExit as e:
+            raise AssertionError(f"the chaos run exited: {e}") from e
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        fleet = [SimpleNamespace(name=f"replica{i}(x{s})", speed=s)
+                 for i, s in enumerate(SERVE_SPEEDS)]
+        timeline = launcher._resolve_targets(
+            load_failure_timeline(str(path)), [r.name for r in fleet])
+    require((out["layers"], out["params"]) == (30, 6910365696),
+            f"the chaos run was not at full width: {out['arch']}")
+    chaos = out["chaos"]
+    require(chaos["failover"]["token_identical"]
+            and chaos["failover"]["lost"] == "replica1(x0.7)",
+            f"failover: {chaos['failover']}")
+    require(counts["fused_decision"] > 0,
+            "fused_decision never launched in the chaos run's ticks")
+    require(counts["heft_fused"] > 0,
+            "heft_fused never launched by the chaos twin's policy")
+    cpu32 = launcher.chaos_twin(
+        timeline, fleet, CHAOS_SLO_S,
+        policy=lambda: make_policy_fabric("torch", device="cpu"))
+    cpu64 = launcher.chaos_twin(timeline, fleet, CHAOS_SLO_S, device="cpu")
+    for tag, cpu in (("float32", cpu32), ("float64", cpu64)):
+        require(all(chaos[k] == cpu[k] for k in TWIN_KEYS),
+                f"chaos twin on the card {chaos} != the CPU's {tag} run "
+                f"{cpu}")
+    log(f"[chaos] {card} | deepseek-7b at full width ({out['params']} "
+        f"parameters), {len(out['outputs'])} requests paged + fused, "
+        f"{chaos['failures']} failures: goodput {chaos['goodput']}/"
+        f"{chaos['goodput_clean']} ({chaos['pct']:.1f}% of failure-free; "
+        f"min 90), {chaos['requeued']} re-queued, {chaos['unserved']} "
+        f"unserved (equal to the CPU twin, float32 and float64); failover "
+        f"lost {chaos['failover']['lost']}, re-served token-identically; "
+        f"launches {counts}; wall {wall:.3f} s")
+    return {"card": card, "wall_s": wall, "launches": counts,
+            "twin": {k: chaos[k] for k in ("failures", "pct") + TWIN_KEYS},
+            "failover": chaos["failover"]}
+
+
+# ---------------------------------------------------------------------------
+# phase: dryrun (launch/dryrun.py over a fake-rank mesh, in subprocesses)
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "deepseek-7b"
+DRYRUN_CELLS = (("decode_32k", "both"), ("prefill_32k", "single"))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_FLOP_SLACK = 1.25
+CARD_DECODE_LANES, CARD_DECODE_CACHE = 4, 2048
+
+
+def run_dryrun_cells(root: Path) -> tuple[dict, Path]:
+    """The dry run's CLI for deepseek-7b's cells, one process each (a fake
+    world needs a process of its own), at once; returns the cells and
+    their directory."""
+    art = root / "experiments" / "artifacts" / "dryrun_torch"
+    paths = {}
+    for shape, mesh in DRYRUN_CELLS:
+        for kind in (("single", "multi") if mesh == "both" else (mesh,)):
+            paths[(shape, kind)] = art / f"{DRYRUN_ARCH}_{shape}_{kind}.json"
+    for p in paths.values():
+        p.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--shape", shape, "--mesh", mesh], env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape, mesh in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, outs):
+        require(p.returncode == 0,
+                f"the dry run exited {p.returncode}: {text[-3000:]}")
+    cells = {}
+    for key, path in paths.items():
+        cells[key] = json.loads(path.read_text())
+        require("error" not in cells[key],
+                f"dry-run cell {key} failed: {cells[key].get('error')}\n"
+                f"{cells[key].get('traceback')}")
+    return cells, art
+
+
+def check_dryrun_cells(cfg, cells: dict, art: Path) -> dict:
+    """Rank 0's FLOPs of each cell at least the weights' products
+    (``model_flops(cfg, tokens, train=False) / devices``) and at most 1.25x
+    of that plus the attention term (``4 · layers · context · q_heads ·
+    head_dim`` a token, over the devices); the cells cover a (deepseek-7b,
+    (16, 16)) replica in ``CostModelRegistry``."""
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.model import model_flops
+    from repro_torch.sched_integration import CostModelRegistry, Replica
+
+    out = {}
+    for (shape_name, mesh), cell in cells.items():
+        sc = SHAPES[shape_name]
+        n = cell["num_devices"]
+        tokens = sc.global_batch * (sc.seq_len if sc.kind == "prefill" else 1)
+        weights = model_flops(cfg, tokens, train=False) / n
+        attn = (4 * cfg.num_layers * sc.seq_len * cfg.num_heads
+                * cfg.head_dim * tokens / n)
+        flops = cell["flops_per_device"]
+        require(weights <= flops <= DRYRUN_FLOP_SLACK * (weights + attn),
+                f"{shape_name} x {cell['mesh']}: {flops:.6e} FLOPs a device "
+                f"outside [{weights:.6e}, {DRYRUN_FLOP_SLACK} x "
+                f"({weights:.6e} + {attn:.6e})]")
+        coll = cell["collectives"]
+        out[f"{shape_name}_{mesh}"] = dict(
+            {k: cell[k] for k in ("mesh", "num_devices", "flops_per_device",
+                                  "bytes_accessed_per_device", "ops",
+                                  "trace_s")},
+            weights_flops=weights, attention_flops=attn,
+            wire_bytes=coll["total_wire_bytes_per_device"],
+            collectives=coll["count_by_op"])
+        log(f"[dryrun] {shape_name} x {cell['mesh']} ({n} fake ranks): "
+            f"{flops:.6e} FLOPs a device (weights' term {weights:.6e}, "
+            f"attention term {attn:.6e}; ratio to their sum "
+            f"{flops / (weights + attn):.6f}), "
+            f"{cell['bytes_accessed_per_device']:.6e} bytes, "
+            f"{coll['total_wire_bytes_per_device']:.6e} wire bytes "
+            f"{coll['count_by_op']}, {cell['ops']} ops recorded in "
+            f"{cell['trace_s']} s")
+    reg = CostModelRegistry()
+    out["registered"] = reg.load_dir(str(art))
+    require(reg.covers(Replica("dryrun", 1.0, 1.0, arch=DRYRUN_ARCH,
+                               mesh_shape=(16, 16))),
+            "the dry-run cells do not cover a (deepseek-7b, 16x16) replica")
+    return out
+
+
+def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
+    """The recorder around one real ``decode_step`` of ``cfg`` on the card
+    at 4 lanes and a 2048-token cache counts the FLOPs, bytes and ops it
+    counts on ``meta`` stand-ins at those shapes; the step is timed beside
+    its counted bytes at 3.35 TB/s."""
+    from repro_torch.launch.cost_analysis import CostRecorder, summarize_step
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import decode_step, init_cache
+
+    params, build = build_model(torch, cfg, seed, "dryrun")
+    B, S = CARD_DECODE_LANES, CARD_DECODE_CACHE
+    caches = init_cache(cfg, B, S, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    pos = torch.tensor(S // 2, dtype=torch.int32, device=DEVICE)
+    args = (params, caches, tokens, pos)
+    with torch.no_grad(), CostRecorder() as rec:
+        logits, _ = decode_step(*args, cfg)
+    real = summarize_step(rec.records, args, (logits, caches))
+    meta = trace_cell(cfg, ShapeConfig("card", "decode", S, B))
+    for key in ("flops_per_device", "bytes_accessed_per_device", "ops",
+                "ops_by_name"):
+        require(real[key] == meta[key],
+                f"{key}: the card counted {real[key]}, meta {meta[key]}")
+    require(bool(torch.isfinite(logits.float()).all()),
+            "the card's decode step gave non-finite logits")
+
+    def step():
+        with torch.no_grad():
+            decode_step(*args, cfg)
+
+    ms = cuda_time_ms(torch, step, iters=5)
+    bytes_ms = real["bytes_accessed_per_device"] / HBM_BYTES_PER_S * 1e3
+    log(f"[dryrun] {card} | a full-width decode_step at {B} lanes and a "
+        f"{S}-token cache: {real['ops']} ops, "
+        f"{real['flops_per_device']:.6e} FLOPs, "
+        f"{real['bytes_accessed_per_device']:.6e} bytes counted on the card "
+        f"== on meta stand-ins; {ms:.6f} ms a step (CUDA events) beside "
+        f"{bytes_ms:.6f} ms for its counted bytes at 3.35 TB/s")
+    return {"lanes": B, "cache": S, "flops": real["flops_per_device"],
+            "bytes": real["bytes_accessed_per_device"], "ops": real["ops"],
+            "ms": ms, "counted_bytes_ms": bytes_ms, "build": build}
+
+
+def phase_dryrun(torch, seed: int, card: str) -> dict:
+    """deepseek-7b's decode_32k (16x16 and 2x16x16) and prefill_32k (16x16)
+    cells of ``python -m repro_torch.launch.dryrun`` with no error, held by
+    :func:`check_dryrun_cells`; then :func:`card_decode_counts` at full
+    width on the card."""
+    from repro_torch.configs import get_config
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    cells, art = run_dryrun_cells(root)
+    cells_s = time.perf_counter() - t0
+    cfg = get_config(SERVE_ARCH)
+    check_widths(cfg, SERVE_ARCH)
+    out = {"cells_wall_s": cells_s,
+           "cells": check_dryrun_cells(cfg, cells, art)}
+    out["card_decode"] = card_decode_counts(torch, cfg, seed, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: examples (examples/port/ as subprocesses, card against CPU)
+# ---------------------------------------------------------------------------
+
+# Each example, and the part of its output whose numbers (decisions,
+# SimResults) must be the same on the card and on the CPU: all of it, or
+# what precedes a marker (serve_elastic's live engines print tokens of a
+# model whose GEMMs round differently on the card; train_pod_compressed
+# prints losses, for the same reason: those are checked by the runs'
+# own assertions and the train / dist-train phases).
+EXAMPLES = {"cedr_runtime_demo": "", "quickstart": "",
+            "serve_with_heft": "", "serve_elastic": "== live ServeEngine",
+            "train_pod_compressed": None}
+EXAMPLE_TIMEOUT_S = 600
+EXAMPLE_JOBS = 6                # processes at once (the dist ones spawn more)
+NUMBER = re.compile(r"-?\d+(?:\.\d+)?|True|False")
+
+
+def compared_part(text: str, upto: str) -> str:
+    return text.split(upto)[0] if upto else text
+
+
+def phase_examples(card: str) -> dict:
+    """Each example of ``examples/port/`` on the card, and with ``--device
+    cpu`` twice: in the card's float32 arithmetic
+    (``REPRO_TORCH_FABRIC_BACKEND=torch``, the kernels' plain version) and
+    on the default float64 host path (the reference's numbers).  Up to
+    :data:`EXAMPLE_JOBS` at once; each must exit 0, and the numbers of the
+    compared part of the card run's output (:data:`EXAMPLES`) must equal
+    the float32 CPU run's.  Where the float64 run differs (a near-tie that
+    float32 breaks the other way), the lines are printed."""
+    root = Path(__file__).resolve().parent
+    base = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = {"card": ([] if DEVICE == "cuda" else ["--device", DEVICE], base),
+            "cpu32": (["--device", "cpu"],
+                      dict(base, REPRO_TORCH_FABRIC_BACKEND="torch",
+                           OMP_NUM_THREADS="1")),
+            "cpu64": (["--device", "cpu"], dict(base, OMP_NUM_THREADS="1"))}
+    queue = [(name, tag) for name in EXAMPLES for tag in runs]
+    running, outs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        while queue or running:
+            while queue and len(running) < EXAMPLE_JOBS:
+                name, tag = queue.pop(0)
+                extra, env = runs[tag]
+                running[(name, tag)] = subprocess.Popen(
+                    [sys.executable,
+                     str(root / "examples" / "port" / f"{name}.py"), *extra],
+                    env=env, cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            key = next(iter(running))
+            outs[key] = running[key].communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                            - (time.perf_counter() - t0)))
+            outs[key] = (running.pop(key).returncode, *outs[key])
+    finally:
+        for p in running.values():
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall}
+    for name, upto in EXAMPLES.items():
+        for tag in runs:
+            rc, _, err = outs[(name, tag)]
+            require(rc == 0, f"{name} ({tag}) exited {rc}: {err[-3000:]}")
+        text = {tag: outs[(name, tag)][1] for tag in runs}
+        entry = {"lines": len(text["card"].splitlines())}
+        if upto is not None:
+            nums = {tag: NUMBER.findall(compared_part(text[tag], upto))
+                    for tag in runs}
+            require(nums["card"] == nums["cpu32"] and len(nums["card"]) > 20,
+                    f"{name}: the card printed\n{text['card']}\nthe float32 "
+                    f"CPU run\n{text['cpu32']}")
+            diff = [(a, b) for a, b in zip(
+                        compared_part(text["card"], upto).splitlines(),
+                        compared_part(text["cpu64"], upto).splitlines())
+                    if NUMBER.findall(a) != NUMBER.findall(b)]
+            entry.update(numbers=len(nums["card"]),
+                         float64_lines_differ=diff)
+            log(f"[examples] {name}: card == --device cpu (float32), "
+                f"{len(nums['card'])} numbers; the float64 host run differs "
+                f"on {len(diff)} line(s)"
+                + "".join(f"\n  card:    {a}\n  float64: {b}"
+                          for a, b in diff))
+        else:
+            log(f"[examples] {name}: exit 0 on the card and on the CPU")
+        res[name] = entry
+    log(f"[examples] {card} | {len(EXAMPLES)} examples x 3 runs, "
+        f"{EXAMPLE_JOBS} at once: wall {wall:.3f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase: dist-train (two ranks on the one card over gloo, pod = 2)
 # ---------------------------------------------------------------------------
 
@@ -2174,6 +2539,25 @@ def main() -> int:
     free_card(torch)
 
     t0 = time.perf_counter()
+    chaos = phase_chaos(torch, K, card)
+    walls["chaos"] = time.perf_counter() - t0
+    log(f"[chaos] wall {walls['chaos']:.3f} s")
+    for name in ("heft_fused", "fused_decision"):
+        launches[name] += chaos["launches"][name]
+    free_card(torch)
+
+    t0 = time.perf_counter()
+    examples = phase_examples(card)
+    walls["examples"] = time.perf_counter() - t0
+    log(f"[examples] wall {walls['examples']:.3f} s")
+
+    t0 = time.perf_counter()
+    dryrun = phase_dryrun(torch, args.seed, card)
+    walls["dryrun"] = time.perf_counter() - t0
+    log(f"[dryrun] wall {walls['dryrun']:.3f} s")
+    free_card(torch)
+
+    t0 = time.perf_counter()
     mamba = phase_serve_mamba(torch, K, args.seed)
     walls["mamba"] = time.perf_counter() - t0
     log(f"[mamba] wall {walls['mamba']:.3f} s")
@@ -2239,7 +2623,8 @@ def main() -> int:
             "launches_serving": serving_counts,
             "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
             "train": train, "dist_serve": dist_serve,
-            "dist_train": dist_train,
+            "dist_train": dist_train, "chaos": chaos, "dryrun": dryrun,
+            "examples": examples,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
     import torch.distributed as dist

@@ -12,6 +12,11 @@ Creating a mesh creates its process groups, and ``new_group`` is
 collective over the whole world: every rank builds every mesh, in the same
 order, including the meshes it is not part of (it then holds no shards of
 their tensors).
+
+The production meshes (:func:`make_production_mesh`, 256 or 512 devices)
+are for the dry run: they live on a process group of the ``fake``
+backend (:func:`init_fake_world`), whose ranks exist only as numbers and
+whose collectives return at once, with this process as rank 0.
 """
 
 from __future__ import annotations
@@ -48,6 +53,40 @@ def init_world(backend: str, *, device=None) -> tuple[int, int]:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
     return dist.get_rank(), dist.get_world_size()
+
+
+def init_fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a ``fake``-backend world of
+    ``world_size`` ranks: collectives return at once and move nothing, so
+    a step on fake tensors runs as rank 0 of a mesh of any size.  A fake
+    world of another size is replaced (its meshes become stale); a real
+    world raises, since the two cannot share a process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"this process is in a {dist.get_backend()!r} world; a fake "
+                f"world needs a process of its own")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``, on a
+    fake world of 256 or 512 ranks (:func:`init_fake_world`).  The mesh is
+    of CUDA devices, as a deployment's is (``DTensor`` picks its
+    collectives by device type: on a CPU mesh an all-to-all becomes an
+    all-gather); no card is needed, since nothing runs on one.  A function,
+    not a module constant: importing this module joins no world."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    init_fake_world(math.prod(shape))
+    return make_debug_mesh(shape, axes, device="cuda")
 
 
 def mesh_axes(*, multi_pod: bool = False) -> MeshAxes:

@@ -4,10 +4,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --fused-scheduler
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
 
-Counterpart of ``repro.launch.serve`` (its ``--chaos`` / ``--min-goodput``
-failure replay is not ported yet).  It builds a small heterogeneous fleet
-of replicas (speeds 1.0 / 0.7 / 1.4) of the ``--arch`` smoke configuration,
-sharing one random parameter set (seed 0), and serves ``--requests`` random
+Counterpart of ``repro.launch.serve``.  It builds a small heterogeneous fleet
+of replicas (speeds 1.0 / 0.7 / 1.4) of the ``--arch`` smoke configuration
+(``--full-width``: its published configuration), sharing one random
+parameter set (seed 0), and serves ``--requests`` random
 prompts of 8-47 tokens through the ``HeftFrontEnd``.  It runs on the card
 unless ``--device cpu`` is given.
 
@@ -38,6 +38,18 @@ full occupancy makes admission queue), with staggered arrivals, and request
 ``--fused-scheduler`` (with ``--paged``) makes the HEFT_RT decisions inside
 the decode ticks, on a ``MappingFabric(backend="fused")``.  ``--slo-s``
 reports how many requests finished within that many seconds of arriving.
+``--chaos TRACE.json`` replays a schema-validated failure timeline
+(``replica_loss`` / ``straggler`` / ``link_degrade`` / ``link_partition``;
+``sched_integration.fleet.validate_failure_timeline``) against a simulator
+twin of the fleet, reports goodput (requests served inside ``--slo-s``) as
+a percentage of the failure-free run, and fails over live: the first lost
+replica leaves the front end and the same requests are served again on
+the survivors, token-identically (exit 1 otherwise).  Goodput below
+``--min-goodput`` (default 90) exits non-zero.  A replica target in the
+timeline may be a unique prefix of a replica's name.  The twin's
+HEFT_RT policy runs on ``--device``: the ``cuda`` kernel on the card, the
+float64 host path with ``--device cpu``.
+
 ``--trace OUT.json`` attaches a Tracer + MetricsRegistry to the front end,
 the engines and an instrumented fabric, and exports a Chrome trace with
 the metrics and the drained device counters.  Output verbosity is the
@@ -52,11 +64,15 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import init_world
 from repro_torch.models import init_params
 from repro_torch.obs import MetricsRegistry, Tracer, get_logger
 from repro_torch.obs.metrics import time_s
+from repro_torch.sched_integration import (POLICIES, FailureEvent, Replica,
+                                           goodput, load_failure_timeline,
+                                           make_requests, simulate_serving,
+                                           spine_topology)
 from repro_torch.sched_integration.fabric import MappingFabric
 from repro_torch.serve import (HeftFrontEnd, ReplicaHandle, ServeEngine,
                                mesh_backed_fleet)
@@ -64,9 +80,16 @@ from repro_torch.serve import (HeftFrontEnd, ReplicaHandle, ServeEngine,
 log = get_logger("serve")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Run the launcher; returns the config's name, layers and parameter
+    count, the outputs and, with ``--chaos``, the twin's numbers and the
+    failover."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--full-width", action="store_true",
+                    help="serve --arch at its published widths and depth "
+                         "(random weights, seed 0) instead of its smoke "
+                         "config")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--replicas", type=int, default=3)
@@ -91,8 +114,15 @@ def main(argv=None) -> None:
                     help="export a Chrome trace (Perfetto) of the run, with "
                          "the metrics snapshot and drained device counters")
     ap.add_argument("--slo-s", type=float, default=2.0,
-                    help="with --paged: per-request latency SLO (seconds "
-                         "from arrival to retire) for the goodput line")
+                    help="per-request latency SLO in seconds: the paged "
+                         "run's goodput line and the --chaos goodput")
+    ap.add_argument("--chaos", default=None, metavar="TRACE.json",
+                    help="replay a schema-validated failure timeline against "
+                         "a simulator twin of the fleet and fail over live; "
+                         "exits non-zero below --min-goodput")
+    ap.add_argument("--min-goodput", type=float, default=90.0,
+                    help="minimum chaos goodput as percent of the "
+                         "failure-free run (default 90)")
     ap.add_argument("--prompt-lens", default=None, metavar="N,N,...",
                     help="prompt lengths, used in turn (default: drawn "
                          "from 8-47)")
@@ -126,7 +156,7 @@ def main(argv=None) -> None:
     if rank:
         log.setLevel("WARNING")
     device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch)
+    cfg = (get_config if args.full_width else get_smoke_config)(args.arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
     log.info(f"arch={cfg.name} params={cfg.param_count()/1e6:.2f}M "
@@ -233,12 +263,107 @@ def main(argv=None) -> None:
         if not same:
             raise SystemExit(1)     # the verification must fail loudly
 
+    summary = {"arch": cfg.name, "layers": cfg.num_layers,
+               "params": cfg.param_count(), "outputs": outs}
+    if args.chaos:
+        summary["chaos"] = _run_chaos(args, front, requests, outs, device,
+                                      tracer, metrics)
+
     if args.trace and rank == 0:
         for name, value in fabric.drain_counters().items():
             metrics.gauge("fabric.device", counter=name).set(value)
         tracer.export(args.trace, metrics=metrics)
         log.info(f"trace: {args.trace} ({len(tracer)} events, "
                  f"{len(metrics)} metrics)")
+    return summary
+
+
+def _resolve_targets(timeline, names):
+    """Resolve replica-kind targets against the fleet, accepting unique name
+    prefixes (a generic trace says ``replica1`` and matches
+    ``replica1(x0.7)``).  Link targets pass through untouched."""
+    out = []
+    for e in timeline:
+        if e.kind in ("replica_loss", "straggler"):
+            hits = [n for n in names
+                    if n == e.target or n.startswith(e.target)]
+            if len(hits) != 1:
+                raise SystemExit(
+                    f"chaos target {e.target!r} matches "
+                    f"{hits or 'no replicas'} in {names}")
+            if hits[0] != e.target:
+                e = FailureEvent(e.t, e.kind, hits[0], e.duration_s,
+                                 e.factor, e.reason)
+        out.append(e)
+    return out
+
+
+def chaos_twin(timeline, replicas, slo_s: float, *, policy=None,
+               device=None, tracer=None, metrics=None) -> dict:
+    """Goodput of the simulator twin of ``replicas`` (name + speed) under
+    ``timeline``, against the failure-free run of the same load.
+
+    The twin's constants are the reference launcher's: a speed-1.0 replica
+    prefills at 25000 and decodes at 126000 tokens/s, the offered load is
+    24 requests/s a unit of speed over 2 s (seed 0), the model has 7e9
+    active parameters, and link events run on one pod a replica behind a
+    shared spine (targets ``podI:spine``).  ``policy`` is a factory of the
+    HEFT_RT policy (default ``POLICIES["heft_rt"]`` on ``device``)."""
+    make = policy or (lambda: POLICIES["heft_rt"](device=device))
+    twin = [Replica(r.name, 25000.0 * r.speed, 126000.0 * r.speed)
+            for r in replicas]
+    rate = 24.0 * sum(r.speed for r in replicas)
+    topo = None
+    if any(e.kind in ("link_degrade", "link_partition") for e in timeline):
+        pod_of = {r.name: f"pod{i}" for i, r in enumerate(twin)}
+        topo = spine_topology(["gw"] + sorted(set(pod_of.values())), 100.0,
+                              pod_of=pod_of, gateway="gw")
+    load = make_requests(rate, 2.0, seed=0)
+    clean = simulate_serving(twin, load, make(), active_params=7e9)
+    chaos = simulate_serving(twin, load, make(), active_params=7e9,
+                             failure_events=timeline, topology=topo,
+                             tracer=tracer, metrics=metrics)
+    g_clean = goodput(clean, load, slo_s)
+    g_chaos = goodput(chaos, load, slo_s)
+    return {"failures": len(timeline), "goodput": g_chaos,
+            "goodput_clean": g_clean,
+            "pct": 100.0 * g_chaos / max(g_clean, 1),
+            "requeued": int(chaos.requeued.sum()),
+            "unserved": int((~chaos.served_mask).sum())}
+
+
+def _run_chaos(args, front, requests, outs, device, tracer, metrics) -> dict:
+    """The --chaos path: the simulator twin's goodput gate, then live
+    failover on the real front end."""
+    timeline = _resolve_targets(load_failure_timeline(args.chaos),
+                                [r.name for r in front.replicas])
+    res = chaos_twin(timeline, front.replicas, args.slo_s, device=device,
+                     tracer=tracer, metrics=metrics)
+    log.info(f"chaos: {res['failures']} failures, goodput {res['goodput']}/"
+             f"{res['goodput_clean']} ({res['pct']:.1f}% of failure-free), "
+             f"{res['requeued']} re-queued, {res['unserved']} unserved")
+
+    # Live failover: the first lost replica leaves the front end and the
+    # same requests are served again; token-identical outputs on the
+    # survivors show that no request depends on the dead engine.
+    losses = [e for e in timeline if e.kind == "replica_loss"]
+    if losses and len(front.replicas) > 1:
+        gone = front.remove_replica(losses[0].target)
+        outs2, _ = front.run_batch(requests)
+        same = all(np.array_equal(a, b) for a, b in zip(outs, outs2))
+        log.info(f"failover: lost {gone.name}, re-served {len(outs2)} "
+                 f"requests on {len(front.replicas)} survivors "
+                 f"({'token-identical' if same else 'MISMATCH'})")
+        if not same:
+            raise SystemExit(1)
+        res["failover"] = {"lost": gone.name,
+                           "survivors": len(front.replicas),
+                           "token_identical": same}
+    if res["pct"] < args.min_goodput:
+        raise SystemExit(
+            f"chaos goodput {res['pct']:.1f}% below --min-goodput "
+            f"{args.min_goodput}%")
+    return res
 
 
 if __name__ == "__main__":

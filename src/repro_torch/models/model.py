@@ -95,25 +95,24 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 # forward
 # ---------------------------------------------------------------------------
 
-class _GradHint(torch.autograd.Function):
-    """Identity forward; the backward lays the cotangent out as the hint
-    site ``name`` says (the reference's ``embed_grad`` hint inside its
+class _EmbedGradHint(torch.autograd.Function):
+    """Identity forward; the backward lays the embedding's cotangent out as
+    the hint site ``embed_grad`` says (the reference's hint inside its
     embedding VJP, which keeps the (V, D) gradient sharded)."""
 
     @staticmethod
-    def forward(ctx, w, name):
-        ctx.name = name
+    def forward(ctx, w):
         return w.view_as(w)
 
     @staticmethod
     def backward(ctx, g):
-        return shard_hint(g, ctx.name), None
+        return shard_hint(g, "embed_grad")
 
 
 def _embed_weight(params: Transformer):
     w = params.embed
     if current_policy() and w.requires_grad and torch.is_grad_enabled():
-        return _GradHint.apply(w, "embed_grad")
+        return _EmbedGradHint.apply(w)
     return w
 
 

@@ -652,7 +652,7 @@ class MappingFabric:
         res = self._decide(a_d, ex_d, av_in, valid, out_avail)
         # One device→host copy for the whole decision.
         no_tokens = torch.empty(0, dtype=torch.int32, device=self.device)
-        buf = pack_tick_outputs(no_tokens, res).cpu().numpy()
+        buf = pack_tick_outputs(no_tokens, res).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the event's one packed D2H
         order, assignment, start, finish, new_avail = unpack_decision(
             buf, self.p_bucket)
         out = (order[:n], assignment[:n], start[:n], finish[:n],

@@ -571,6 +571,10 @@ class HeftFrontEnd:
                         dtype=bool)
         self.fabric.set_pe_mask(mask if mask.any() else None)
 
+    def estimate_s(self, prompt_len: int, new_tokens: int,
+                   replica: ReplicaHandle) -> float:
+        return _host_scale_s(prompt_len, new_tokens) / replica.speed
+
     def exec_estimates(self, requests: list[tuple[np.ndarray, int]]
                        ) -> np.ndarray:
         """(n, P) Exec_TID matrix: cost-model columns where the registry
@@ -615,7 +619,7 @@ class HeftFrontEnd:
         new_avail = np.asarray(new_avail)
         for i, r in enumerate(self.replicas):
             r.avail_at = float(new_avail[i])
-        return [(int(order[i]), int(assignment[i])) for i in range(n)]
+        return [(int(order[i]), int(assignment[i])) for i in range(n)]  # repro: noqa[host-sync-in-hot-path] map_event returns host arrays
 
     # -- fused-scheduler helpers ---------------------------------------------
 

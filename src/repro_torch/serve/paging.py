@@ -388,7 +388,7 @@ class PagedRuntime:
                     # The tick's one device→host copy: tokens and decision.
                     buf = pack_tick_outputs(toks, res)
         width = lanes + (0 if sched is None else 4 * len(a_p) + len(avail))
-        host = eng._publish(buf, (width,), torch.int32).cpu().numpy()
+        host = eng._publish(buf, (width,), torch.int32).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the tick's one packed D2H
         nxt = host[:lanes]
         decision = None
         if sched is not None:

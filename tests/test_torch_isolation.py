@@ -52,7 +52,15 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                 "repro_torch.dist.hints", "repro_torch.dist.sharding",
                 "repro_torch.dist.compression", "repro_torch.launch.mesh",
                 "repro_torch.launch.train", "repro_torch.train.trainer",
-                "repro_torch.checkpoint.checkpointer"):
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.launch.cost_analysis", "repro_torch.analysis",
+                "repro_torch.analysis.findings",
+                "repro_torch.analysis.registry",
+                "repro_torch.analysis.runner",
+                "repro_torch.analysis.rules_ast",
+                "repro_torch.analysis.rules_repo",
+                "repro_torch.analysis.cli"):
         assert new in mods, new
     code = (
         "import importlib, json, sys\n"
@@ -118,9 +126,21 @@ def test_every_reference_module_of_the_slice_has_a_counterpart():
                 (REPO / "src" / "repro" / "configs").glob("*.py")]
     slice_8 = ["dist/__init__.py", "dist/hints.py", "dist/sharding.py",
                "dist/compression.py", "launch/mesh.py"]
-    for rel in slice_1 + slice_2 + slice_5 + slice_8:
+    slice_9 = ["launch/specs.py", "launch/dryrun.py"]
+    slice_9 += [f"analysis/{p.name}" for p in
+                (REPO / "src" / "repro" / "analysis").glob("*.py")]
+    for rel in slice_1 + slice_2 + slice_5 + slice_8 + slice_9:
         assert (REPO / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
+    # XLA's HLO has no counterpart: the port counts the step as it runs
+    assert (REPO / "src" / "repro" / "launch" / "hlo_analysis.py").exists()
+    assert (PORT / "launch" / "cost_analysis.py").exists()
+    # every module of the reference now has its counterpart
+    ref = {p.relative_to(REPO / "src" / "repro").as_posix()
+           for p in (REPO / "src" / "repro").rglob("*.py")
+           if "__pycache__" not in p.parts}
+    port = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert ref - port == {"launch/hlo_analysis.py"}
     for cu in ("heft_fused.cu", "fused_decision.cu", "oddeven_sort.cu",
                "eft_select.cu"):
         assert (PORT / "csrc" / cu).exists()
