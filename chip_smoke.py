@@ -119,14 +119,25 @@ the first disagreement:
   decisions and SimResults) equal the float32 CPU run's; lines where the
   float64 run differs are printed;
 * dryrun — ``python -m repro_torch.launch.dryrun`` for deepseek-7b at
-  ``decode_32k`` (16x16 and 2x16x16) and ``prefill_32k`` (16x16), two
-  processes at once (a fake world needs a process of its own): no cell
-  with an error, rank 0's FLOPs between the weights' products and 1.25x
-  of those plus the attention term, the cells covering a (deepseek-7b,
-  16x16) replica in ``CostModelRegistry``; then the recorder around one
+  ``decode_32k`` and ``train_4k`` (16x16 and 2x16x16) and ``prefill_32k``
+  (16x16), yi-34b ``decode_32k`` (its 56 / 8 heads padded to 64 / 16) and
+  deepseek-v2-236b ``decode_32k`` (MLA, the batch over data), all 16x16,
+  one process a cell at once (a fake world needs a process of its own):
+  no cell with an error, rank 0's FLOPs within the dry run's
+  ``flop_bounds`` for the config the cell ran, the cells covering a
+  (deepseek-7b, 16x16)
+  replica in ``CostModelRegistry``; then the recorder around one
   real full-width ``decode_step`` on the card (4 lanes, a 2048-token
   cache) counts the FLOPs, bytes and ops it counts on ``meta`` tensors at
   those shapes, and the step is timed;
+* tp-train (after train) — deepseek-7b at full width and depth trained two
+  steps by the tensor-parallel ``make_train_step(pod_axis="pod", mesh=)``
+  on a (pod, data, model) = (1, 1, 1) mesh over the ``nccl`` world of this
+  one process (every op a ``DTensor`` op, no collective that moves data):
+  step 1's loss / ce / grad_norm and every parameter after step 2 bitwise
+  the train phase's meshless run (host copies of its parameters); the
+  step's seconds beside the meshless step, a step's aten ops and
+  ``DTensor`` redistributions, the peak memory;
 * dist-train (after train) — two spawned processes on the one card over a
   ``gloo`` group as two pods (NCCL refuses two ranks on one card; gloo
   runs all_reduce and broadcast on its tensors through the host):
@@ -1524,87 +1535,155 @@ def phase_chaos(torch, K, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_ARCH = "deepseek-7b"
-DRYRUN_CELLS = (("decode_32k", "both"), ("prefill_32k", "single"))
+# (arch, shape, meshes): deepseek-7b's serving and training cells, yi-34b's
+# padded heads (56 / 8 over 16: 64 / 16) and deepseek-v2's MLA with the
+# batch over data
+DRYRUN_CELLS = (("deepseek-7b", "decode_32k", "both"),
+                ("deepseek-7b", "prefill_32k", "single"),
+                ("deepseek-7b", "train_4k", "both"),
+                ("yi-34b", "decode_32k", "single"),
+                ("deepseek-v2-236b", "decode_32k", "single"))
 DRYRUN_TIMEOUT_S = 600
-DRYRUN_FLOP_SLACK = 1.25
 CARD_DECODE_LANES, CARD_DECODE_CACHE = 4, 2048
 
 
-def run_dryrun_cells(root: Path) -> tuple[dict, Path]:
-    """The dry run's CLI for deepseek-7b's cells, one process each (a fake
-    world needs a process of its own), at once; returns the cells and
-    their directory."""
-    art = root / "experiments" / "artifacts" / "dryrun_torch"
-    paths = {}
-    for shape, mesh in DRYRUN_CELLS:
-        for kind in (("single", "multi") if mesh == "both" else (mesh,)):
-            paths[(shape, kind)] = art / f"{DRYRUN_ARCH}_{shape}_{kind}.json"
-    for p in paths.values():
-        p.unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRYRUN_ARCH, "--shape", shape, "--mesh", mesh], env=env, cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for shape, mesh in DRYRUN_CELLS]
-    try:
-        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, text in zip(procs, outs):
-        require(p.returncode == 0,
-                f"the dry run exited {p.returncode}: {text[-3000:]}")
-    cells = {}
-    for key, path in paths.items():
-        cells[key] = json.loads(path.read_text())
-        require("error" not in cells[key],
-                f"dry-run cell {key} failed: {cells[key].get('error')}\n"
-                f"{cells[key].get('traceback')}")
-    return cells, art
+def run_dryrun_cells() -> tuple[dict, Path]:
+    """The dry run's CLI for :data:`DRYRUN_CELLS`, one process each (a fake
+    world needs a process of its own), all at once, through
+    ``launch.dryrun.run_cells``; returns the cells and their directory."""
+    from repro_torch.launch import dryrun
+
+    keys = [(arch, shape, kind) for arch, shape, mesh in DRYRUN_CELLS
+            for kind in (("single", "multi") if mesh == "both" else (mesh,))]
+    res = dryrun.run_cells([(a, s, k == "multi") for a, s, k in keys],
+                           jobs=len(keys), timeout=DRYRUN_TIMEOUT_S)
+    cells = dict(zip(keys, res))
+    for key, cell in cells.items():
+        require("error" not in cell,
+                f"dry-run cell {key} failed: {cell.get('error')}\n"
+                f"{cell.get('traceback')}")
+    return cells, Path(dryrun.ARTIFACT_DIR)
 
 
-def check_dryrun_cells(cfg, cells: dict, art: Path) -> dict:
-    """Rank 0's FLOPs of each cell at least the weights' products
-    (``model_flops(cfg, tokens, train=False) / devices``) and at most 1.25x
-    of that plus the attention term (``4 · layers · context · q_heads ·
-    head_dim`` a token, over the devices); the cells cover a (deepseek-7b,
-    (16, 16)) replica in ``CostModelRegistry``."""
+DRYRUN_FLOP_SLACK = 1.25
+
+
+def dryrun_flop_bounds(cell: dict) -> tuple[float, float]:
+    """(lowest, highest) FLOPs rank 0 of a dry-run cell may count, from the
+    config alone (heads padded over the model axis of 16 where it does not
+    divide them, as the cell ran them; no function of the dry run or of
+    the MoE dispatch is used).
+
+    ``T`` tokens (``B`` a decode, ``B · S`` otherwise), ``N`` the active
+    parameters.  Floor: the weights' products, 2 FLOPs a token for each
+    active weight it multiplies (3x that to train: 6·N·T), which leaves
+    out the looked-up embedding rows (untied), the vectors (norms, biases,
+    Mamba's ``D``), Mamba's elementwise ``A_log`` and its conv of shifted
+    adds, and a prefill's head on all but its last token.  Ceiling: :data:`DRYRUN_FLOP_SLACK` x (every
+    weight on every token, with the routed experts on the dispatch's
+    capacity rows in place of their ``top_k`` + attention); to train, 4x
+    the products (forward, remat's second forward, a backward of twice a
+    forward) and 5x attention (the ``differentiable`` q-block recompute's
+    third forward too).
+
+    * Capacity rows of a MoE layer: ``G`` groups of ``T / G`` tokens, each
+      giving each of the ``E`` experts ``C = max(4, ⌊cf · (T / G) · K /
+      E⌋)`` rows (the reference's formula).  ``G · E · C ≤ max(cf · T · K,
+      4 · E · G)``, which grows with ``G``.  ``G`` is ``B · 16`` to train
+      and prefill (the reference's ``activation_hint_policy`` pins
+      ``__moe_groups__`` to the batch x the model axis); a decode's is at
+      most ``min(T, max(min(T / 8, 256), batch ranks))`` (the
+      reference's ``_num_groups``, raised to the batch's ranks where they
+      split the groups, and never more groups than tokens).  The experts' weights, ``(params - active) · E / (E - K)``,
+      are ``1 / E`` a row.
+    * Attention a token and attention layer: GQA ``4 · S · H · hd`` (QK^T
+      and PV over every key); MLA's absorbed decode ``2 · S · H · (2 ·
+      kv_lora + rope)``, its prefill and train ``2 · S · H · (nope + rope
+      + v)``; a Mamba layer's scan ``2 · d_inner · d_state``.
+    * A batch the batch axes do not split (``batch_sharded`` False) runs
+      whole on each of their ranks: the ceiling divides over ``n / batch
+      ranks`` devices, not ``n``."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import padded_config
     from repro_torch.models.config import SHAPES
-    from repro_torch.models.model import model_flops
+    from repro_torch.models.model import param_shapes
+
+    cfg = padded_config(get_config(cell["arch"]), 16)
+    sc = SHAPES[cell["shape"]]
+    n = cell["num_devices"]
+    batch_ranks = n // 16
+    B, S = sc.global_batch, sc.seq_len
+    T = B * (1 if sc.kind == "decode" else S)
+    train = sc.kind == "train"
+    N, total = cfg.active_param_count(), cfg.param_count()
+    head = cfg.vocab_size * cfg.d_model
+    unmultiplied = (0 if cfg.tie_embeddings else head) + sum(
+        math.prod(sh) for name, sh in param_shapes(cfg).items()
+        if len(sh) == 1 or name.split(".")[-1] in ("A_log", "conv_w"))
+    floor = 2 * (N - unmultiplied) * T
+    if sc.kind == "prefill":
+        floor -= 2 * head * (T - B)
+    floor *= 3 if train else 1
+    products = 2 * N * T
+    if cfg.moe is not None:
+        E, K, cf = (cfg.moe.num_experts, cfg.moe.top_k,
+                    cfg.moe.capacity_factor)
+        experts = (total - N) * E // (E - K)
+        G = (B * 16 if sc.kind != "decode"
+             else min(T, max(min(T // 8, 256), batch_ranks)))
+        rows = max(cf * T * K, 4 * E * G)
+        products += 2 * experts / E * rows - 2 * experts * K // E * T
+    H, hd = cfg.num_heads, cfg.head_dim
+    if cfg.attn_type == "mla":
+        R, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        per = (2 * S * H * (2 * R + rope) if sc.kind == "decode" else
+               2 * S * H * (cfg.qk_nope_head_dim + rope + cfg.v_head_dim))
+    else:
+        per = 4 * S * H * hd
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    scan = 2 * cfg.ssm.d_inner * cfg.ssm.d_state if cfg.ssm else 0
+    attn = T * (kinds.count("attn") * per + kinds.count("mamba") * scan)
+    few = n if cell.get("batch_sharded", True) else n // batch_ranks
+    top = 4 * products + 5 * attn if train else products + attn
+    return floor / n, DRYRUN_FLOP_SLACK * top / few
+
+
+def check_dryrun_cells(cells: dict, art: Path) -> dict:
+    """Rank 0's FLOPs of each cell within :func:`dryrun_flop_bounds`, the
+    heads it ran those of ``padded_config`` over the model axis of 16; the
+    cells cover a (deepseek-7b, (16, 16)) replica in
+    ``CostModelRegistry``."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import padded_config
     from repro_torch.sched_integration import CostModelRegistry, Replica
 
     out = {}
-    for (shape_name, mesh), cell in cells.items():
-        sc = SHAPES[shape_name]
+    for (arch, shape_name, mesh), cell in cells.items():
+        cfg = padded_config(get_config(arch), 16)
+        require(list(cell["run_heads"]) == [cfg.num_heads, cfg.num_kv_heads],
+                f"{arch}: the cell ran heads {cell['run_heads']}")
         n = cell["num_devices"]
-        tokens = sc.global_batch * (sc.seq_len if sc.kind == "prefill" else 1)
-        weights = model_flops(cfg, tokens, train=False) / n
-        attn = (4 * cfg.num_layers * sc.seq_len * cfg.num_heads
-                * cfg.head_dim * tokens / n)
+        lo, hi = dryrun_flop_bounds(cell)
         flops = cell["flops_per_device"]
-        require(weights <= flops <= DRYRUN_FLOP_SLACK * (weights + attn),
-                f"{shape_name} x {cell['mesh']}: {flops:.6e} FLOPs a device "
-                f"outside [{weights:.6e}, {DRYRUN_FLOP_SLACK} x "
-                f"({weights:.6e} + {attn:.6e})]")
+        require(lo <= flops <= hi,
+                f"{arch} {shape_name} x {cell['mesh']}: {flops:.6e} FLOPs a "
+                f"device outside [{lo:.6e}, {hi:.6e}]")
         coll = cell["collectives"]
-        out[f"{shape_name}_{mesh}"] = dict(
+        out[f"{arch}_{shape_name}_{mesh}"] = dict(
             {k: cell[k] for k in ("mesh", "num_devices", "flops_per_device",
                                   "bytes_accessed_per_device", "ops",
-                                  "trace_s")},
-            weights_flops=weights, attention_flops=attn,
+                                  "trace_s", "wall_s", "run_heads")},
+            flops_lo=lo, flops_hi=hi,
             wire_bytes=coll["total_wire_bytes_per_device"],
             collectives=coll["count_by_op"])
-        log(f"[dryrun] {shape_name} x {cell['mesh']} ({n} fake ranks): "
-            f"{flops:.6e} FLOPs a device (weights' term {weights:.6e}, "
-            f"attention term {attn:.6e}; ratio to their sum "
-            f"{flops / (weights + attn):.6f}), "
+        log(f"[dryrun] {arch} {shape_name} x {cell['mesh']} ({n} fake "
+            f"ranks, heads {cell['run_heads']}): {flops:.6e} FLOPs a device "
+            f"(bounds {lo:.6e} .. {hi:.6e}; {flops / lo:.6f} x the floor, "
+            f"{flops / hi:.6f} x the ceiling), "
             f"{cell['bytes_accessed_per_device']:.6e} bytes, "
             f"{coll['total_wire_bytes_per_device']:.6e} wire bytes "
             f"{coll['count_by_op']}, {cell['ops']} ops recorded in "
-            f"{cell['trace_s']} s")
+            f"{cell['trace_s']} s ({cell['wall_s']} s its process)")
     reg = CostModelRegistry()
     out["registered"] = reg.load_dir(str(art))
     require(reg.covers(Replica("dryrun", 1.0, 1.0, arch=DRYRUN_ARCH,
@@ -1660,20 +1739,17 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
 
 
 def phase_dryrun(torch, seed: int, card: str) -> dict:
-    """deepseek-7b's decode_32k (16x16 and 2x16x16) and prefill_32k (16x16)
-    cells of ``python -m repro_torch.launch.dryrun`` with no error, held by
-    :func:`check_dryrun_cells`; then :func:`card_decode_counts` at full
-    width on the card."""
+    """The :data:`DRYRUN_CELLS` of ``python -m repro_torch.launch.dryrun``
+    with no error, held by :func:`check_dryrun_cells`; then
+    :func:`card_decode_counts` at full width on the card."""
     from repro_torch.configs import get_config
 
-    root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    cells, art = run_dryrun_cells(root)
+    cells, art = run_dryrun_cells()
     cells_s = time.perf_counter() - t0
     cfg = get_config(SERVE_ARCH)
     check_widths(cfg, SERVE_ARCH)
-    out = {"cells_wall_s": cells_s,
-           "cells": check_dryrun_cells(cfg, cells, art)}
+    out = {"cells_wall_s": cells_s, "cells": check_dryrun_cells(cells, art)}
     out["card_decode"] = card_decode_counts(torch, cfg, seed, card)
     return out
 
@@ -1769,6 +1845,105 @@ def phase_examples(card: str) -> dict:
     log(f"[examples] {card} | {len(EXAMPLES)} examples x 3 runs, "
         f"{EXAMPLE_JOBS} at once: wall {wall:.3f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase: tp-train (the tensor-parallel step at full width on a (1, 1, 1) mesh)
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 2
+
+
+def phase_tp_train(torch, seed: int, card: str, evidence: dict,
+                   meshless: dict) -> dict:
+    """deepseek-7b at its published widths and depth (bf16, int8 moments,
+    remat, ``TokenPipeline`` 4 x 512) trained ``TP_STEPS`` steps by the
+    tensor-parallel ``make_train_step(pod_axis="pod", mesh=)`` on a (pod,
+    data, model) = (1, 1, 1) mesh over an ``nccl`` world of this one
+    process: every op a ``DTensor`` op (the vocab-parallel embedding and
+    cross-entropy, the local-shard pod reduction, AdamW on ``DTensor``
+    leaves), no collective that moves data.  Step 1's loss, ce and
+    grad_norm and every parameter after step ``TP_STEPS`` must equal the
+    meshless train phase's on the same seed, bit for bit (``evidence``:
+    its step metrics and host copies of its parameters).  A third step is
+    counted: its aten ops and ``DTensor`` redistributions."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import TrainLayout
+
+    init_world("nccl" if DEVICE == "cuda" else "gloo", device=DEVICE)
+    cfg = get_config(FULL_ARCH)
+    check_widths(cfg, FULL_ARCH)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, out = build_model(torch, cfg, seed, "tp-train")
+    mesh = make_debug_mesh((1, 1, 1), ("pod", "data", "model"),
+                           device=DEVICE)
+    lay = TrainLayout(cfg, mesh)
+    opt_cfg = full_opt_config()
+    opt = lay.place_opt(init_opt_state(dict(params.named_parameters()),
+                                       opt_cfg), opt_cfg.moment_dtype)
+    placed = lay.place_params(params)
+    del params
+    require(all(isinstance(p, DTensor) for p in placed.parameters()),
+            "[tp-train] a parameter is not a DTensor")
+    step = make_train_step(cfg, opt_cfg, pod_axis="pod", mesh=mesh,
+                           layout=lay)
+    pipe = full_pipeline(cfg, seed)
+    steps = []
+    for s in range(TP_STEPS):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in pipe.batch_at(s).items()}
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, opt, _, met = step(placed, opt, None, batch)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        rec = {k: float(met[k]) for k in ("loss", "ce", "grad_norm", "lr")}
+        rec["s"] = time.perf_counter() - t0
+        steps.append(rec)
+        log(f"[tp-train] {cfg.name} step {s + 1}: loss {rec['loss']:.6f} ce "
+            f"{rec['ce']:.6f} grad_norm {rec['grad_norm']:.6f}, "
+            f"{rec['s']:.6f} s (meshless {evidence['steps'][s]['s']:.6f} s)")
+    want = evidence["steps"][0]
+    for k in ("loss", "ce", "grad_norm"):
+        require(steps[0][k] == want[k],
+                f"[tp-train] step 1 {k} {steps[0][k]!r} against the meshless "
+                f"{want[k]!r}")
+    differ = {}
+    for n, p in placed.named_parameters():
+        local = p.to_local().detach().cpu()
+        if not torch.equal(local, evidence["params"][n]):
+            differ[n] = float((local.float()
+                               - evidence["params"][n].float()).abs().max())
+    require(not differ, f"[tp-train] parameters after step {TP_STEPS} that "
+                        f"differ from the meshless run's: {differ}")
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in pipe.batch_at(TP_STEPS).items()}
+    ops, redist = count_dispatch(torch, lambda: step(placed, opt, None,
+                                                     batch))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    out.update({"card": card, "mesh": [1, 1, 1], "steps": steps,
+                "meshless_steps": evidence["steps"],
+                "meshless_step_s_median_2_4": meshless["step_s_median_2_4"],
+                "bitwise_params": len(evidence["params"]),
+                "aten_ops_per_step": ops, "redistributions_per_step": redist,
+                "peak_bytes": peak})
+    log(f"[tp-train] {card} | {cfg.name} on a (1, 1, 1) (pod, data, model) "
+        f"mesh: step 1's loss / ce / grad_norm and all "
+        f"{len(evidence['params'])} parameters after step {TP_STEPS} bitwise "
+        f"the meshless train phase's; step {TP_STEPS} "
+        f"{steps[-1]['s']:.6f} s against the meshless "
+        f"{evidence['steps'][TP_STEPS - 1]['s']:.6f} s (median of its steps "
+        f"2-{FULL_STEPS} {meshless['step_s_median_2_4']:.6f} s); a step "
+        f"dispatches {ops} aten ops with {redist} DTensor redistributions; "
+        f"peak memory {peak} bytes")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2339,14 +2514,30 @@ def train_restart(torch, arch: str, seed: int) -> dict:
     return {"losses": [l for _, l in h_clean], "bitwise": True}
 
 
+def full_opt_config():
+    """The full-width runs' AdamW: int8 moments, decay 0.1, warmup-cosine
+    from 3e-3 over ``FULL_STEPS``."""
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    return AdamWConfig(moment_dtype="int8", weight_decay=0.1,
+                       learning_rate=warmup_cosine(3e-3, 10, FULL_STEPS))
+
+
+def full_pipeline(cfg, seed: int):
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    return TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=FULL_SEQ, global_batch=FULL_BATCH,
+                                    seed=seed))
+
+
 def train_full_width(torch, seed: int, card: str) -> dict:
     """deepseek-7b at its published widths and depth, bf16, int8 moments:
     ``FULL_STEPS`` steps of ``make_train_step`` on ``TokenPipeline``
     batches of 4 x 512 tokens, remat on."""
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.models import init_params, logits_fn, model_flops
-    from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.models import logits_fn, model_flops
+    from repro_torch.optim import init_opt_state
     from repro_torch.train import make_train_step
     import torch.nn.functional as F
 
@@ -2356,12 +2547,9 @@ def train_full_width(torch, seed: int, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
     params, out = build_model(torch, cfg, seed, "train")
     params.requires_grad_(True)
-    opt_cfg = AdamWConfig(moment_dtype="int8", weight_decay=0.1,
-                          learning_rate=warmup_cosine(3e-3, 10, FULL_STEPS))
+    opt_cfg = full_opt_config()
     opt = init_opt_state(dict(params.named_parameters()), opt_cfg)
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=FULL_SEQ, global_batch=FULL_BATCH,
-                                    seed=seed))
+    pipe = full_pipeline(cfg, seed)
     step = make_train_step(cfg, opt_cfg)
     before = {n: p.detach().to("cpu", copy=True)
               for n, p in params.named_parameters()}
@@ -2391,6 +2579,10 @@ def train_full_width(torch, seed: int, card: str) -> dict:
             require(np.isfinite(rec[k]), f"[train] step {s + 1}: {k} = "
                                          f"{rec[k]}")
         steps.append(rec)
+        if s + 1 == TP_STEPS:
+            # the tp-train phase's evidence: every parameter on the host
+            evidence = {n: p.detach().to("cpu", copy=True)
+                        for n, p in params.named_parameters()}
         log(f"[train] {cfg.name} step {s + 1}: loss {rec['loss']:.6f} ce "
             f"{rec['ce']:.6f} grad_norm {rec['grad_norm']:.6f} lr "
             f"{rec['lr']:.3e}, {dt:.6f} s")
@@ -2412,7 +2604,8 @@ def train_full_width(torch, seed: int, card: str) -> dict:
         "model_flops_6NT": flops, "flops_with_remat_8NT": flops * 8 / 6,
         "mfu_6NT": flops / step_s / BF16_OPS_PER_S,
         "hw_flops_share_8NT": flops * 8 / 6 / step_s / BF16_OPS_PER_S,
-        "peak_bytes": peak, "reckoned_resident_bytes": 41.5e9})
+        "peak_bytes": peak, "reckoned_resident_bytes": 41.5e9,
+        "evidence": {"params": evidence, "steps": steps[:TP_STEPS]}})
     log(f"[train] {card} | {cfg.name} {cfg.num_layers} layers, "
         f"{cfg.param_count()} parameters, batch {FULL_BATCH} x {FULL_SEQ}, "
         f"int8 moments: step {step_s:.6f} s (median of steps 2-"
@@ -2581,6 +2774,14 @@ def main() -> int:
     free_card(torch)
 
     t0 = time.perf_counter()
+    tp_train = phase_tp_train(torch, args.seed, card,
+                              train["full_width"].pop("evidence"),
+                              train["full_width"])
+    walls["tp_train"] = time.perf_counter() - t0
+    log(f"[tp-train] wall {walls['tp_train']:.3f} s")
+    free_card(torch)
+
+    t0 = time.perf_counter()
     dist_train = phase_dist_train(torch, args.seed, card)
     walls["dist_train"] = time.perf_counter() - t0
     log(f"[dist-train] wall {walls['dist_train']:.3f} s")
@@ -2622,7 +2823,7 @@ def main() -> int:
             "launches_queue": queue_counts,
             "launches_serving": serving_counts,
             "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
-            "train": train, "dist_serve": dist_serve,
+            "train": train, "tp_train": tp_train, "dist_serve": dist_serve,
             "dist_train": dist_train, "chaos": chaos, "dryrun": dryrun,
             "examples": examples,
             "event_shapes": timing["event_shapes"],

@@ -163,7 +163,9 @@ class Checkpointer:
         to the template leaf's dtype where that is a tensor, on ``device``
         (the card unless told otherwise).  ``shardings``: a tree (or prefix)
         of ``dist.sharding.NamedSharding`` to place the leaves on a mesh
-        with, through ``reshard_tree``."""
+        with, through ``reshard_tree``: a placed leaf stays on the host
+        until a rank's own shard of it is cut, and only that shard moves to
+        the device."""
         dev = resolve_device(device)
         self.wait()
         if step is None:
@@ -181,12 +183,14 @@ class Checkpointer:
                  else torch.from_numpy(flat[k]))
             if isinstance(leaf, torch.Tensor):
                 t = t.to(leaf.dtype)
-            out[k] = t.to(dev)
+            out[k] = t if shardings is not None else t.to(dev)
         tree = _unflatten_into(template, out)
         if shardings is not None:
-            from repro_torch.dist.sharding import reshard_tree
+            from repro_torch.dist.hints import is_dtensor
+            from repro_torch.dist.sharding import reshard_tree, tree_map
 
-            tree = reshard_tree(tree, shardings)
+            tree = tree_map(lambda x: x if x is None or is_dtensor(x)
+                            else x.to(dev), reshard_tree(tree, shardings))
         return tree
 
     def read_metadata(self, step: int | None = None) -> dict:

@@ -56,7 +56,8 @@ def psum_mean(tree: dict, group=None) -> dict:
 
 
 def compressed_psum_mean(tree: dict, group=None, err: dict | None = None,
-                         scale_groups: dict | None = None):
+                         scale_groups: dict | None = None,
+                         amax_groups=()):
     """int8 + error-feedback mean over the ranks of ``group``.
 
     ``err``: the residual of the previous step (leaf-shaped f32, or None →
@@ -67,7 +68,15 @@ def compressed_psum_mean(tree: dict, group=None, err: dict | None = None,
     The worst per-element error of the mean is half an int8 step of the
     group-wide absmax, and the residual carries it into the next step.
     One ``all_reduce`` (MAX) carries every scale, one (SUM) a leaf the
-    int8 payloads."""
+    int8 payloads.
+
+    ``amax_groups``: process groups the leaves are sharded over within a
+    pod (a tensor-parallel step passes each rank's local shards): the
+    scales are max-reduced over them too, so each scale is the absmax of
+    the whole leaf (of the leaves of its key), as the reference's, and
+    the ranks holding one leaf's shards quantize onto one grid.  A
+    replicated leaf has the same absmax on every rank there, so one MAX
+    over the pod's ranks serves every leaf."""
     n = _group_size(group)
     names = list(tree)
 
@@ -87,6 +96,9 @@ def compressed_psum_mean(tree: dict, group=None, err: dict | None = None,
         if tree[k].numel():
             i = slots[key]
             amax[i] = torch.maximum(amax[i], total(k).abs().max())
+    for g in amax_groups:
+        if _group_size(g) > 1 and names:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
     if n > 1 and names:
         # one shared grid across the group: the integer sum is exact
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)

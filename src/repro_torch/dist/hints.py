@@ -32,6 +32,8 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 # Every shard_hint site name the model stack may use (the reference's
 # tuple, as it stands).
 SITE_INVENTORY = (
@@ -77,6 +79,25 @@ def sharding_policy(policy):
         stack.pop()
 
 
+def checkpointed(fn, *args, **kwargs):
+    """``torch.utils.checkpoint`` of ``fn(*args, **kwargs)`` (not
+    reentrant) whose recompute runs under the policy of this call.  The
+    stack is a thread's, and on the card the autograd engine runs the
+    backward, and the recompute inside it, on a device thread of its own,
+    which would otherwise see no policy."""
+    from torch.utils.checkpoint import checkpoint
+
+    policy = current_policy()
+
+    def under_policy(*a, **kw):
+        if policy is None:
+            return fn(*a, **kw)
+        with sharding_policy(policy):
+            return fn(*a, **kw)
+
+    return checkpoint(under_policy, *args, use_reentrant=False, **kwargs)
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -87,6 +108,46 @@ def gathered(x):
     """``x`` whole on the ranks of its mesh (a ``DTensor`` through
     ``full_tensor``, collective over the mesh); a plain tensor as it is."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+def like(x, ref):
+    """``x`` laid out as ``ref`` (both ``DTensor`` s on one mesh; else
+    ``x`` as it is): a residual branch takes the residual stream's layout
+    before the add, so the reduction of its partial sums is an explicit,
+    differentiable step and its backward hands the branch a gradient in
+    the branch's own layout."""
+    if not (is_dtensor(x) and is_dtensor(ref)) or \
+            tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def summed(x):
+    """``x`` with its partial sums reduced: a ``DTensor``'s ``Partial``
+    placements made ``Replicate`` (an all-reduce); else ``x`` as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def whole_along(x, dim: int):
+    """``x`` with tensor dim ``dim`` unsplit (a ``DTensor`` gathered over
+    the mesh dims that split it; else ``x`` as it is)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= x.ndim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 def shard_hint(x, name: str):
@@ -105,6 +166,18 @@ def shard_hint(x, name: str):
     return x.redistribute(mesh, placements_for(mesh, spec, x.ndim))
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def local_call(fn, args, in_specs, out_specs):
     """``fn(*args)`` on local shards.
 
@@ -114,7 +187,18 @@ def local_call(fn, args, in_specs, out_specs):
     pass as they are, and each output comes back as a ``DTensor`` on the
     same mesh laid out as its ``out_specs`` entry says (``out_specs`` a
     spec or ``None`` for a single output, a tuple for several).  The
-    function must not reduce over a sharded dim."""
+    function must not reduce over a sharded dim.
+
+    Under autograd the local tensors carry gradients both ways
+    (``to_local`` / ``from_local``).  An argument's gradient is laid out
+    as the argument, except over the mesh dims the call's work is split on
+    (those where some argument is sharded): an argument replicated there
+    gets a partial sum (each rank's part of the function adds its share of
+    the gradient).  The gradient leaving ``fn`` for an argument is
+    made contiguous first: ``to_local``'s backward wraps it in a
+    ``DTensor`` whose global strides are the contiguous ones, and a
+    permuted local gradient (einsum's backward gives them) would make the
+    views that follow fail on the rank's shard."""
     dts = [a for a in args if is_dtensor(a)]
     if not dts:
         return fn(*args)
@@ -122,12 +206,21 @@ def local_call(fn, args, in_specs, out_specs):
 
     from repro_torch.dist.sharding import P, placements_for
 
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
     mesh = dts[0].device_mesh
+    placed = [placements_for(mesh, spec or P(), a.ndim) if is_dtensor(a)
+              else None for a, spec in zip(args, in_specs)]
+    split = {i for pl in placed if pl is not None
+             for i, p in enumerate(pl) if isinstance(p, Shard)}
     local = []
-    for a, spec in zip(args, in_specs):
+    for a, pl in zip(args, placed):
         if is_dtensor(a):
-            a = a.redistribute(mesh, placements_for(mesh, spec or P(),
-                                                    a.ndim)).to_local()
+            grad_pl = [Partial() if i in split and isinstance(p, Replicate)
+                       else p for i, p in enumerate(pl)]
+            a = a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+            if a.requires_grad:
+                a = _ContiguousGrad.apply(a)
         local.append(a)
     out = fn(*local)
     single = not isinstance(out, tuple)

@@ -180,13 +180,13 @@ def reshard_tree(tree, new_shardings, *, old_shardings=None):
     ``old_shardings``, when given, marks leaves already in place (``old ==
     new``), which are skipped.  A ``DTensor`` on the target mesh is
     redistributed; a plain tensor (the same value on every rank) is cut
-    into its local shard with no communication; a ``DTensor`` on another
+    into its local shard with no communication (:func:`cut_local`: where
+    it lies, so a host tensor's shard alone goes to the card); a
+    ``DTensor`` on another
     mesh (two disjoint slices of one world) goes through its whole value,
     gathered on the old mesh and broadcast from its lowest rank, as the
     reference goes through the host.  Values are bitwise unchanged.
     """
-    from torch.distributed.tensor import distribute_tensor
-
     def place(x, new, old):
         if new is None or x is None or (old is not None and old == new):
             return x
@@ -195,7 +195,7 @@ def reshard_tree(tree, new_shardings, *, old_shardings=None):
             if x.device_mesh is new.mesh:
                 return x.redistribute(new.mesh, pl)
             x = full_value(x)
-        return distribute_tensor(x, new.mesh, pl, src_data_rank=None)
+        return cut_local(x, new.mesh, pl)
 
     def sub(t, key):
         # a NamedSharding / None at a node covers every leaf beneath it
@@ -211,6 +211,37 @@ def reshard_tree(tree, new_shardings, *, old_shardings=None):
         return place(x, new, old)
 
     return walk(tree, new_shardings, old_shardings)
+
+
+def cut_local(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """``x`` (a plain tensor holding the same value on every rank) as a
+    ``DTensor`` laid out by ``placements`` (shards and replicas): each rank
+    slices its own shard where ``x`` lies and moves only that to the
+    mesh's device, with no communication.  The values are
+    ``distribute_tensor(x, ..., src_data_rank=None)``'s, which would move
+    the whole of ``x`` to the device first; that call still serves a
+    ``meta`` tensor and a rank outside ``mesh``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    if x.is_meta or mesh.get_coordinate() is None:
+        return distribute_tensor(x, mesh, placements, src_data_rank=None)
+    grad = x.requires_grad
+    x = x.detach()
+    shape, offset = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                          placements)
+    local = x[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    if x.device.type != mesh.device_type:
+        dev = (torch.device("cpu") if mesh.device_type == "cpu" else
+               torch.device(mesh.device_type, torch.get_device_module(
+                   mesh.device_type).current_device()))
+        local = local.to(dev)
+    out = DTensor.from_local(local.contiguous(), mesh, placements,
+                             run_check=False, shape=x.shape,
+                             stride=torch.empty(x.shape,
+                                                device="meta").stride())
+    return out.requires_grad_(True) if grad else out
 
 
 def to_plain(tree, device, *, src: int | None = None):
@@ -232,6 +263,324 @@ def from_local_like(local: torch.Tensor, like, shape) -> torch.Tensor:
     return DTensor.from_local(local, like.device_mesh, like.placements,
                               run_check=False, shape=torch.Size(shape),
                               stride=stride)
+
+
+# ---------------------------------------------------------------------------
+# uneven head counts: padding within GQA groups
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeadPadding:
+    """The attention heads of a config laid out over a model axis that does
+    not divide them (the reference's GSPMD pads such a dim).
+
+    The KV heads are padded with zero groups up to ``groups``, and each
+    group is copied ``copies`` times (adjacent copies), so ``kv_heads =
+    groups * copies`` is a multiple of the axis.  A group's ``G`` query
+    heads split into ``copies`` sub-groups of ``sub`` heads, each reading
+    its own copy; a sub-group's missing heads are zero heads.  So every
+    padded query head still reads its own KV head, and a rank holds whole
+    sub-groups with their KV head.  ``q_src`` / ``kv_src`` give, for each
+    padded head, the original head it holds (-1: a zero head)."""
+
+    heads: int
+    kv_heads: int
+    copies: int
+    q_src: tuple[int, ...]
+    kv_src: tuple[int, ...]
+
+
+def model_axis_size(mesh, ax: MeshAxes | None = None) -> int:
+    """The size of ``mesh``'s model axis (1 without a mesh or the axis)."""
+    name = (ax or MeshAxes()).model
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def head_padding(cfg: ModelConfig, m: int) -> HeadPadding | None:
+    """How ``cfg``'s heads pad over a model axis of ``m`` ranks; None when
+    the axis divides them (or the model has no attention layer).  Of the
+    layouts that split evenly, the one with the fewest query heads (then
+    KV heads) is taken.  MLA has no KV heads (its latent cache is shared by
+    every head): its query heads pad at the end."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    if m <= 1 or "attn" not in kinds:
+        return None
+    H = cfg.num_heads
+    KV = H if cfg.attn_type == "mla" else cfg.num_kv_heads
+    if KV % m == 0:
+        return None
+    G = H // KV
+    best = None
+    for groups in range(KV, KV + m + 1):
+        for copies in range(1, m + 1):
+            kvp = groups * copies
+            if kvp % m:
+                continue
+            sub = -(-G // copies)
+            key = (kvp * sub, kvp, groups, copies)
+            best = key if best is None or key < best else best
+    hp, kvp, groups, copies = best
+    sub = hp // kvp
+    q_src, kv_src = [], []
+    for g in range(groups):
+        for c in range(copies):
+            kv_src.append(g if g < KV else -1)
+            for i in range(sub):
+                j = c * sub + i
+                q_src.append(g * G + j if g < KV and j < G else -1)
+    return HeadPadding(hp, kvp, copies, tuple(q_src), tuple(kv_src))
+
+
+def padded_config(cfg: ModelConfig, m: int) -> ModelConfig:
+    """``cfg`` as its model runs over a model axis of ``m`` ranks: the
+    padded head counts of :func:`head_padding` (``head_dim`` kept), or
+    ``cfg`` itself when nothing pads."""
+    hp = head_padding(cfg, m)
+    if hp is None:
+        return cfg
+    kv = hp.heads if cfg.attn_type == "mla" else hp.kv_heads
+    return cfg.with_(num_heads=hp.heads, num_kv_heads=kv,
+                     head_dim=cfg.head_dim)
+
+
+def _head_leaf(cfg: ModelConfig, name: str, ndim: int):
+    """(axis, unit, which source) of a parameter leaf with a head dim, or
+    None: the GQA projections hold ``unit = head_dim`` columns (rows for
+    ``wo``) a head, MLA's up-projections a head dim of their own."""
+    parts = name.split(".")
+    if len(parts) < 2 or parts[-2] != "mixer":
+        return None
+    leaf = parts[-1]
+    if cfg.attn_type == "mla":
+        if leaf in ("w_uq", "w_uk", "w_uv") or (leaf == "wq" and ndim == 3):
+            return 1, 1, "q"
+        if leaf == "wo":
+            return 0, cfg.v_head_dim, "q"
+        return None
+    if leaf == "wq":
+        return 1, cfg.head_dim, "q"
+    if leaf in ("wk", "wv"):
+        return 1, cfg.head_dim, "kv"
+    if leaf == "wo":
+        return 0, cfg.head_dim, "q"
+    return None
+
+
+def _select_heads(t: torch.Tensor, axis: int, unit: int, index,
+                  keep=None) -> torch.Tensor:
+    """``t`` with its head dim (``axis``, ``unit`` entries a head) rebuilt
+    from the heads ``index`` names; where ``keep`` is False, zeros."""
+    axis = axis % t.ndim
+    shape = tuple(t.shape)
+    n = shape[axis] // unit
+    v = t.reshape(*shape[:axis], n, unit, *shape[axis + 1:])
+    idx = torch.as_tensor(index, dtype=torch.int64, device=t.device)
+    out = v.index_select(axis, idx)
+    if keep is not None:
+        mask = torch.as_tensor(keep, dtype=torch.bool, device=t.device)
+        mask = mask.reshape((-1,) + (1,) * (out.ndim - axis - 1))
+        out = torch.where(mask, out, torch.zeros((), dtype=t.dtype,
+                                                 device=t.device))
+    return out.reshape(*shape[:axis], len(idx) * unit, *shape[axis + 1:])
+
+
+def _pad_leaf(t, hp: HeadPadding, axis: int, unit: int, which: str):
+    src = hp.q_src if which == "q" else hp.kv_src
+    return _select_heads(t, axis, unit, [max(s, 0) for s in src],
+                         [s >= 0 for s in src])
+
+
+def _unpad_leaf(t, hp: HeadPadding, axis: int, unit: int, which: str):
+    src = hp.q_src if which == "q" else hp.kv_src
+    first: dict[int, int] = {}
+    for j, s in enumerate(src):
+        if s >= 0:
+            first.setdefault(s, j)
+    return _select_heads(t, axis, unit, [first[s] for s in sorted(first)])
+
+
+def _in_proj_order(cfg: ModelConfig, m: int) -> list[int] | None:
+    """The column order of a Mamba ``in_proj`` (D, 2 · d_inner) on a model
+    axis of ``m``: rank r's block holds its d_inner shard of ``u`` then the
+    same shard of ``z``, so the block's split into ``u`` and ``z`` is the
+    rank's own (``models/mamba.py``); the unpermuted columns would put ``u``
+    on half the ranks and ``z`` on the other half, and the split would
+    gather the (B, S, 2 · d_inner) activation.  None without Mamba layers
+    or a model axis."""
+    if cfg.ssm is None or m <= 1:
+        return None
+    dI = cfg.ssm.d_inner
+    w = dI // m
+    order: list[int] = []
+    for r in range(m):
+        order += list(range(r * w, (r + 1) * w))
+        order += list(range(dI + r * w, dI + (r + 1) * w))
+    return order
+
+
+def _is_in_proj(name: str) -> bool:
+    return name.endswith("mixer.in_proj")
+
+
+def pad_params(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """A parameter tree (name → plain tensor) laid out for a model axis of
+    ``m``: head dims padded (:func:`head_padding`: zero query heads with
+    zero rows of ``wo``, KV heads copied or zero) and Mamba's ``in_proj``
+    columns in :func:`_in_proj_order`.  The tree itself when nothing
+    changes."""
+    hp = head_padding(cfg, m)
+    order = _in_proj_order(cfg, m)
+    if hp is None and order is None:
+        return tree
+    out = {}
+    for name, t in tree.items():
+        rule = _head_leaf(cfg, name, t.ndim) if hp is not None else None
+        if rule is not None:
+            t = _pad_leaf(t, hp, *rule)
+        elif order is not None and _is_in_proj(name):
+            t = t.index_select(1, torch.as_tensor(order, device=t.device))
+        out[name] = t
+    return out
+
+
+def unpad_params(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """:func:`pad_params` undone: each original head from its first copy,
+    ``in_proj``'s columns in their own order."""
+    hp = head_padding(cfg, m)
+    order = _in_proj_order(cfg, m)
+    if hp is None and order is None:
+        return tree
+    inverse = None
+    if order is not None:
+        inverse = [0] * len(order)
+        for j, c in enumerate(order):
+            inverse[c] = j
+    out = {}
+    for name, t in tree.items():
+        rule = _head_leaf(cfg, name, t.ndim) if hp is not None else None
+        if rule is not None:
+            t = _unpad_leaf(t, hp, *rule)
+        elif inverse is not None and _is_in_proj(name):
+            t = t.index_select(1, torch.as_tensor(inverse, device=t.device))
+        out[name] = t
+    return out
+
+
+def _cache_head_rule(cfg: ModelConfig, name: str):
+    # GQA cache leaves (..., KV, head_dim); MLA's latent leaves have no heads
+    return (-2, 1, "kv") if name in ("k", "v") else None
+
+
+def pad_caches(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """A cache, page-pool or page-snapshot tree (leaf name → plain tensor,
+    the KV heads second to last) padded like the parameters."""
+    hp = head_padding(cfg, m)
+    if hp is None:
+        return tree
+    return {n: t if _cache_head_rule(cfg, n) is None
+            else _pad_leaf(t, hp, *_cache_head_rule(cfg, n))
+            for n, t in tree.items()}
+
+
+def unpad_caches(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """:func:`pad_caches` undone."""
+    hp = head_padding(cfg, m)
+    if hp is None:
+        return tree
+    return {n: t if _cache_head_rule(cfg, n) is None
+            else _unpad_leaf(t, hp, *_cache_head_rule(cfg, n))
+            for n, t in tree.items()}
+
+
+def tie_padded_grads(grads: dict, cfg: ModelConfig, m: int) -> dict:
+    """Gradients of a padded parameter tree made those of the unpadded
+    model: each KV head's copies get the sum of the copies' gradients (the
+    gradient of the one original head, so the copies stay equal), and the
+    zero heads a zero gradient (their ``wo`` rows would otherwise learn
+    from the KV copies their zero queries average).  The tree itself when
+    nothing pads.  A ``DTensor`` leaf is made whole over its head dim for
+    the fold (a collective over the mesh) and laid out as it was."""
+    hp = head_padding(cfg, m)
+    if hp is None:
+        return grads
+    out = {}
+    for name, g in grads.items():
+        rule = _head_leaf(cfg, name, g.ndim)
+        if rule is None:
+            out[name] = g
+            continue
+        axis, unit, which = rule
+        src = hp.q_src if which == "q" else hp.kv_src
+
+        def fold(t):
+            if which == "kv" and hp.copies > 1:
+                shape = tuple(t.shape)
+                n = len(src) // hp.copies
+                v = t.reshape(*shape[:axis], n, hp.copies, unit,
+                              *shape[axis + 1:])
+                t = v.sum(dim=axis + 1, keepdim=True).expand(
+                    v.shape).reshape(shape)
+            keep = torch.as_tensor([s >= 0 for s in src], device=t.device)
+            keep = keep.repeat_interleave(unit).reshape(
+                (-1,) + (1,) * (t.ndim - axis - 1)).to(t.dtype)
+            return t * keep
+
+        if is_dtensor(g):
+            # the fold on each rank's shard with the head dim made whole;
+            # the other placements (a partial sum too) pass through
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+
+            placements, mesh = g.placements, g.device_mesh
+            whole = [Replicate() if isinstance(p, Shard) and p.dim == axis
+                     else p for p in placements]
+            g = g.redistribute(mesh, whole)
+            g = DTensor.from_local(fold(g.to_local()), mesh, whole,
+                                   run_check=False, shape=g.shape,
+                                   stride=g.stride())
+            g = g.redistribute(mesh, placements)
+        else:
+            g = fold(g)
+        out[name] = g
+    return out
+
+
+def settle_grads(grads: dict, params: dict, *,
+                 keep_partial: int | None = None) -> dict:
+    """Each ``DTensor`` gradient laid out as its parameter: the partial sums
+    ``DTensor``'s backward leaves over the mesh dims the batch is split on
+    are reduced there (an all-reduce, or a reduce-scatter onto an FSDP
+    shard), the counterpart of GSPMD's gradient reduction.
+    ``keep_partial``: a mesh dim left a partial sum where it is one (the
+    pod dim, which the trainer reduces itself)."""
+    out = {}
+    for name, g in grads.items():
+        p = params[name]
+        if is_dtensor(g):
+            target = list(p.placements)
+            if keep_partial is not None and \
+                    g.placements[keep_partial].is_partial():
+                target[keep_partial] = g.placements[keep_partial]
+            if tuple(g.placements) != tuple(target):
+                g = g.redistribute(p.device_mesh, target)
+        out[name] = g
+    return out
+
+
+def grad_norm_weights(cfg: ModelConfig, m: int) -> dict | None:
+    """Per-leaf weights of the squared gradient in the global norm, so a
+    padded tree's norm is the unpadded model's: ``1 / copies`` for the KV
+    leaves whose heads are copied (:func:`tie_padded_grads` gives every
+    copy the whole gradient).  None when nothing is copied."""
+    hp = head_padding(cfg, m)
+    if hp is None or hp.copies == 1:
+        return None
+    from repro_torch.models import model as model_mod
+
+    return {name: 1.0 / hp.copies
+            for name, p in model_mod.param_specs(cfg).named_parameters()
+            if (_head_leaf(cfg, name, p.ndim) or (0, 0, ""))[2] == "kv"}
 
 
 # ---------------------------------------------------------------------------

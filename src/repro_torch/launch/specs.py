@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import (grad_norm_weights, padded_config,
+                                       settle_grads, tie_padded_grads)
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import (cache_specs, decode_step, loss_fn,
                                       prefill_step)
@@ -53,32 +55,45 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig,
-               opt_cfg: AdamWConfig | None = None):
+               opt_cfg: AdamWConfig | None = None, *, model_axis: int = 1):
     """The step of ``shape``'s kind, taking the ``input_specs`` fields
     positionally after the state: ``train_step(params, opt_state, tokens,
     labels)``, ``prefill(params, tokens, caches)`` (zeroed caches to fill,
     laid out as the mesh wants them), ``serve_step(params, caches, tokens,
-    pos)``.  ``params`` is a ``Transformer``."""
+    pos)``.  ``params`` is a ``Transformer``.
+
+    ``model_axis``: the size of the mesh's model axis.  The steps run the
+    config padded for it (``dist.sharding.padded_config``; ``params`` and
+    the caches padded to match), and the train step gives the padded
+    heads the gradients of the unpadded model (``tie_padded_grads``, the
+    copied KV heads counted once in the norm).  On ``DTensor`` parameters
+    the train step lays each gradient out as its parameter
+    (``settle_grads``) before the update."""
+    run_cfg = padded_config(cfg, model_axis)
     if shape.kind == "train":
         opt_cfg = opt_cfg or opt_config_for(cfg)
+        weights = grad_norm_weights(cfg, model_axis)
 
         def train_step(params, opt_state, tokens, labels):
             leaves = dict(params.named_parameters())
-            loss, _ = loss_fn(params, tokens, labels, cfg)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            _, opt_state, om = adamw_update(dict(zip(leaves, grads)),
-                                            opt_state, leaves, opt_cfg)
+            loss, _ = loss_fn(params, tokens, labels, run_cfg)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            grads = tie_padded_grads(settle_grads(grads, leaves), cfg,
+                                     model_axis)
+            _, opt_state, om = adamw_update(grads, opt_state, leaves,
+                                            opt_cfg, norm_weights=weights)
             return params, opt_state, {"loss": loss, **om}
 
         return train_step
 
     if shape.kind == "prefill":
         def prefill(params, tokens, caches):
-            return prefill_step(params, tokens, cfg, caches=caches)
+            return prefill_step(params, tokens, run_cfg, caches=caches)
         return prefill
 
     def serve_step(params, caches, tokens, pos):
-        return decode_step(params, caches, tokens, pos, cfg)
+        return decode_step(params, caches, tokens, pos, run_cfg)
     return serve_step
 
 

@@ -22,6 +22,13 @@ several ranks on one card):
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --mesh-shape 2,2 --compress-pods --steps 4
 
+With a model axis (``--mesh-shape p,d,m``) the step is tensor-parallel
+(``train.trainer.TrainLayout``: parameters and moments are ``DTensor`` s,
+the cross-entropy vocab-parallel):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --mesh-shape 1,2,2 --steps 4
+
 Rank 0 logs and writes the checkpoints and the trace.
 """
 

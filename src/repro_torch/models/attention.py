@@ -38,9 +38,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.hints import current_policy, local_call, shard_hint
+from repro_torch.dist.hints import (checkpointed, current_policy, local_call,
+                                    shard_hint)
 from repro_torch.dist.sharding import P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of, param,
@@ -165,8 +165,7 @@ def chunked_causal_attention(
     outs = []
     for i in range(S // qc):
         if remat:
-            outs.append(checkpoint(_q_block, qs[:, i], k, v, i,
-                                   use_reentrant=False, **kw))
+            outs.append(checkpointed(_q_block, qs[:, i], k, v, i, **kw))
         else:
             outs.append(_q_block(qs[:, i], k, v, i, **kw))
     out = torch.cat(outs, dim=1).reshape(B, S, H, dv)
@@ -360,6 +359,8 @@ def mla_block(
 
     heads = _heads_spec()
     up = P(None, heads[2], None) if len(heads) > 2 else P()  # (R, H, ·)
+    # the latent leaves (B, S, ·) and caches keep the batch's layout
+    lat = P(heads[0], None, None) if len(heads) else P()
     if decode_pos is not None:
         if cache is None or S != 1:
             raise ValueError("decode takes one token a row and a cache")
@@ -384,7 +385,7 @@ def mla_block(
 
         out = local_call(core, (q_nope, q_rope, ckv, kr, cache["ckv"],
                                 cache["kr"], params.w_uk, params.w_uv),
-                         (heads, heads, None, None, None, None, up, up),
+                         (heads, heads, lat, lat, lat, lat, up, up),
                          heads)
     else:
         # prefill: expand to per-head K / V and run the chunked attention
@@ -407,10 +408,10 @@ def mla_block(
             return out
 
         args = (q_nope, q_rope, k_nope, v, kr)
-        specs = (heads,) * 4 + (None,)
+        specs = (heads,) * 4 + (lat,)
         if cache is not None:
             args += (ckv, kr, cache["ckv"], cache["kr"])
-            specs += (None,) * 4
+            specs += (lat,) * 4
         out = local_call(core, args, specs, heads)
     y = out.reshape(B, S, H * vd) @ params.wo
     return y, cache

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.dist.hints import current_policy, local_call, shard_hint
+from repro_torch.dist.hints import (current_policy, local_call, shard_hint,
+                                    summed)
 from repro_torch.dist.sharding import P
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.config import ModelConfig
@@ -103,7 +104,10 @@ def _ssm_inputs(params: Mamba, u: torch.Tensor, cfg: ModelConfig):
     """u: (B, L, dI) → Δ (B, L, dI), B_t (B, L, N), C_t (B, L, N), f32."""
     N = cfg.ssm.d_state
     R = _dt_rank(cfg)
-    proj = (u @ params.x_proj).to(torch.float32)        # (B, L, R+2N)
+    # the partial sums over d_inner's shards reduced here, once: left to
+    # DTensor, the layout of the product with the column-split dt_proj
+    # gathers dt_proj whole instead, a full-width product on every rank
+    proj = summed((u @ params.x_proj).to(torch.float32))  # (B, L, R+2N)
     dt_r, B_t, C_t = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
     if cfg.ssm.bcdt_rms:
         eps = cfg.norm_eps
@@ -139,28 +143,43 @@ def _check_chunkable(S: int, cfg: ModelConfig) -> None:
 
 def selective_scan(params: Mamba, u: torch.Tensor, cfg: ModelConfig,
                    h0: torch.Tensor | None = None):
-    """u: (B, S, dI) post-conv activations → (y (B, S, dI), h_final)."""
-    B, S, dI = u.shape
+    """u: (B, S, dI) post-conv activations → (y (B, S, dI), h_final).
+
+    The recurrence is independent per row and channel, so on a mesh it
+    runs on each rank's rows and d_inner shard (``local_call`` in the
+    ``mamba_inner`` layout): its many small elementwise ops skip
+    ``DTensor``'s dispatch."""
+    S = u.shape[1]
     N = cfg.ssm.d_state
     _check_chunkable(S, cfg)
     Q = min(cfg.ssm.chunk, S)
     A = -torch.exp(params.A_log)                        # (dI, N) f32
-    if h0 is None:
-        h0 = torch.zeros((B, dI, N), dtype=torch.float32, device=u.device)
     delta, B_t, C_t = _ssm_inputs(params, u, cfg)
-    uf = u.to(torch.float32)
-    h = h0
-    ys = []
-    for c in range(S // Q):
-        sl = slice(c * Q, (c + 1) * Q)
-        d_c, b_c, c_c, u_c = delta[:, sl], B_t[:, sl], C_t[:, sl], uf[:, sl]
-        decay = torch.exp(d_c[..., None] * A)           # (B, Q, dI, N)
-        bx = (d_c * u_c)[..., None] * b_c[:, :, None, :]
-        hs = _chunk_recurrence(h, decay, bx)
-        ys.append(torch.einsum("bqdn,bqn->bqd", hs, c_c))
-        h = hs[:, -1]
-    y = torch.cat(ys, dim=1) + uf * params.D
-    return y.to(u.dtype), h
+
+    def scan(u, delta, B_t, C_t, A, Dp, *h0):
+        uf = u.to(torch.float32)
+        h = h0[0] if h0 else torch.zeros((u.shape[0], u.shape[2], N),
+                                         dtype=torch.float32, device=u.device)
+        ys = []
+        for c in range(S // Q):
+            sl = slice(c * Q, (c + 1) * Q)
+            d_c, b_c, c_c, u_c = (delta[:, sl], B_t[:, sl], C_t[:, sl],
+                                  uf[:, sl])
+            decay = torch.exp(d_c[..., None] * A)       # (B, Q, dI, N)
+            bx = (d_c * u_c)[..., None] * b_c[:, :, None, :]
+            hs = _chunk_recurrence(h, decay, bx)
+            ys.append(torch.einsum("bqdn,bqn->bqd", hs, c_c))
+            h = hs[:, -1]
+        y = torch.cat(ys, dim=1) + uf * Dp
+        return y.to(u.dtype), h
+
+    inner = (current_policy() or {}).get("mamba_inner") or P()
+    b = inner[0] if len(inner) else None
+    m = inner[2] if len(inner) > 2 else None
+    chan, rows, state = P(b, None, m), P(b, None, None), P(b, m, None)
+    args = (u, delta, B_t, C_t, A, params.D) + (() if h0 is None else (h0,))
+    specs = (chan, chan, rows, rows, P(m, None), P(m)) + (state,)
+    return local_call(scan, args, specs[:len(args)], (chan, state))
 
 
 def mamba_block(
@@ -175,7 +194,11 @@ def mamba_block(
     step starts from its state and writes the new state into it in place;
     the position does not enter (a Mamba layer has none)."""
     S = x.shape[1]
-    u, z = (x @ params.in_proj).chunk(2, dim=-1)
+    # on a mesh each rank's in_proj columns are its d_inner shard of u then
+    # of z (dist.sharding.pad_params), so the split is the rank's own
+    inner = (current_policy() or {}).get("mamba_inner") or P()
+    u, z = local_call(lambda t: t.chunk(2, dim=-1), (x @ params.in_proj,),
+                      (inner,), (inner, inner))
     u = shard_hint(u, "mamba_inner")
     conv_state = cache["conv"] if cache is not None else None
     u_c, new_conv = _causal_conv(u, params.conv_w, params.conv_b, conv_state)
@@ -196,7 +219,6 @@ def mamba_block(
         y, h = selective_scan(params, u_c, cfg, h0)
     if cache is not None:
         # in place on each rank's shard of d_inner (the cache's layout)
-        inner = (current_policy() or {}).get("mamba_inner") or P()
         m = inner[2] if len(inner) > 2 else None
         conv_spec, ssm_spec = P(None, None, m), P(None, m, None)
         local_call(lambda c, n: c.copy_(n), (cache["conv"], new_conv),

@@ -30,10 +30,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.dist.hints import current_policy, shard_hint
+from repro_torch.dist.hints import (checkpointed, current_policy, gathered,
+                                    is_dtensor, shard_hint, sharding_policy,
+                                    whole_along)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
@@ -98,15 +99,19 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 class _EmbedGradHint(torch.autograd.Function):
     """Identity forward; the backward lays the embedding's cotangent out as
     the hint site ``embed_grad`` says (the reference's hint inside its
-    embedding VJP, which keeps the (V, D) gradient sharded)."""
+    embedding VJP, which keeps the (V, D) gradient sharded).  The policy
+    is the forward's: the backward may run on the autograd engine's own
+    thread, which has none installed."""
 
     @staticmethod
     def forward(ctx, w):
+        ctx.policy = current_policy()
         return w.view_as(w)
 
     @staticmethod
     def backward(ctx, g):
-        return shard_hint(g, "embed_grad")
+        with sharding_policy(ctx.policy):
+            return shard_hint(g, "embed_grad")
 
 
 def _embed_weight(params: Transformer):
@@ -116,8 +121,52 @@ def _embed_weight(params: Transformer):
     return w
 
 
+def _vocab_parallel_embedding(tokens, w):
+    """``F.embedding(tokens, w)`` for a ``DTensor`` table ``w`` (V, D) whose
+    vocab is split over a mesh dim: the other dims of the table are
+    gathered (its FSDP shards of D), each rank looks its tokens up in its
+    own rows (the others give zero rows) and the result is a partial sum
+    over the vocab's mesh dim, the batch laid out as the tokens'.  (The
+    reference's ``_embed_lookup``; ``DTensor``'s own rule for this layout
+    mixes up its masks once the tokens are split over ``data``.)  On a mesh
+    of one rank it computes ``F.embedding``'s bits and gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = w.device_mesh, w.placements
+    vocab = {i for i, p in enumerate(pl) if isinstance(p, Shard)
+             and p.dim == 0}
+    w = w.redistribute(mesh, [p if i in vocab else Replicate()
+                              for i, p in enumerate(pl)])
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tokens = tokens.redistribute(mesh, [
+        Replicate() if i in vocab else p
+        for i, p in enumerate(tokens.placements)])
+    _, offset = compute_local_shape_and_global_offset(w.shape, mesh,
+                                                      w.placements)
+    # the table's gradient is a partial sum over the tokens' split dims
+    table = w.to_local(grad_placements=[
+        Partial() if isinstance(t, Shard) and isinstance(p, Replicate)
+        else p for t, p in zip(tokens.placements, w.placements)])
+    local = tokens.to_local().long() - offset[0]
+    here = (local >= 0) & (local < table.shape[0])
+    out = F.embedding(torch.where(here, local, 0), table) \
+        * here[..., None].to(table.dtype)
+    shape = (*tokens.shape, w.shape[1])
+    return DTensor.from_local(
+        out, mesh, [Partial() if i in vocab else p
+                    for i, p in enumerate(tokens.placements)],
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def _embed_tokens(params: Transformer, tokens, cfg: ModelConfig):
-    x = F.embedding(tokens, _embed_weight(params))
+    w = _embed_weight(params)
+    x = (_vocab_parallel_embedding(tokens, w) if is_dtensor(w)
+         else F.embedding(tokens, w))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x.to(dtype_of(cfg.compute_dtype))
@@ -160,9 +209,94 @@ def logits_fn(params: Transformer, tokens, cfg: ModelConfig,
     return _unembed(params, x, cfg), metrics
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Σ (logsumexp - gold) over the rows of one rank's logits, whose vocab
+    is split over ``group`` (this rank's columns start at ``lo``).
+
+    The forward all-reduces three row vectors over the group: the max
+    (MAX), the sum of ``exp(x - max)`` and the gold logit (SUM; only the
+    rank holding the label's column contributes it).  The backward is
+    ``softmax - onehot`` on the local columns, with no collective.  It
+    computes ``torch.logsumexp`` and its gradient the way ATen does (``max
+    + log Σ exp(x - max)``; ``g · exp(x - lse)``, the gold's ``-g`` added
+    where the label is), so on a group of one it is bitwise the plain
+    chunk and its autograd."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, group):
+        n = logits.shape[-1]
+        mx = logits.amax(dim=-1, keepdim=True)
+        mx = _group_reduce(mx, "max", group)
+        s = torch.sum(torch.exp(logits - mx), dim=-1)
+        s = _group_reduce(s, "sum", group)
+        mx = mx[..., 0]
+        lse = torch.log(s) + mx.masked_fill(mx.abs() == float("inf"), 0.0)
+        local = labels.long() - lo
+        here = (local >= 0) & (local < n)
+        idx = torch.where(here, local, 0)[..., None]
+        gold = torch.where(here, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        gold = _group_reduce(gold, "sum", group)
+        ctx.save_for_backward(logits, lse, idx, here)
+        return torch.sum(lse - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, here = ctx.saved_tensors
+        rows = g.expand(lse.shape)
+        grad = rows[..., None] * torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, idx, torch.where(here, -rows, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _group_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` all-reduced over ``group`` (a functional collective, which the
+    dry run's recorder counts); as it is on a group of one."""
+    if group is None:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+
+def _vocab_parallel_ce(logits, labels) -> torch.Tensor:
+    """:class:`_VocabParallelCE` on ``DTensor`` logits (B, c, V) laid out
+    with the batch over some mesh dims and the vocab over others (never
+    gathered whole): returns the chunk's Σ as a ``DTensor``, a partial sum
+    over the batch's mesh dims and replicated over the vocab's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = logits.device_mesh, logits.placements
+    last = logits.ndim - 1
+    vocab = [i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == last]
+    batch = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+             and p.dim == 0]
+    if len(vocab) > 1 or len(vocab) + len(batch) < sum(
+            isinstance(p, Shard) for p in pl):
+        raise ValueError(f"vocab-parallel CE takes logits sharded over the "
+                         f"batch and at most one mesh dim of vocab, got {pl}")
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    group = (mesh.get_group(vocab[0])
+             if vocab and mesh.size(vocab[0]) > 1 else None)
+    if is_dtensor(labels):
+        labels = labels.redistribute(
+            mesh, [p if i in batch else Replicate()
+                   for i, p in enumerate(pl)]).to_local()
+    part = _VocabParallelCE.apply(logits.to_local(), labels, offset[last],
+                                  group)
+    return DTensor.from_local(part, mesh,
+                              [Partial() if i in batch else Replicate()
+                               for i in range(len(pl))], run_check=False)
+
+
 def _ce_chunk(params: Transformer, hc, yc, cfg: ModelConfig) -> torch.Tensor:
-    """Σ (logsumexp - gold) over one chunk, on f32 logits."""
+    """Σ (logsumexp - gold) over one chunk, on f32 logits; on ``DTensor``
+    logits over their local vocab shards (:func:`_vocab_parallel_ce`)."""
     logits = shard_hint(_unembed(params, hc, cfg), "logits").to(torch.float32)
+    if is_dtensor(logits):
+        return _vocab_parallel_ce(logits, yc)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return torch.sum(logz - gold)
@@ -180,12 +314,17 @@ def chunked_cross_entropy(params: Transformer, hidden, labels,
     if S % chunk:
         raise ValueError(f"sequence length {S} must be a multiple of the "
                          f"cross-entropy chunk {chunk}")
+    # on a mesh the sequence (split at layer boundaries) is gathered once:
+    # the chunks slice it and the unembedding flattens (batch, sequence),
+    # and a (batch, sequence)-split operand of a matmul sends DTensor into
+    # a slow search over strided layouts
+    hidden = whole_along(hidden, 1)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         if torch.is_grad_enabled():
-            part = checkpoint(_ce_chunk, params, hidden[:, sl], labels[:, sl],
-                              cfg, use_reentrant=False)
+            part = checkpointed(_ce_chunk, params, hidden[:, sl],
+                                labels[:, sl], cfg)
         else:
             part = _ce_chunk(params, hidden[:, sl], labels[:, sl], cfg)
         total = total + part
@@ -196,14 +335,18 @@ def loss_fn(params: Transformer, tokens, labels, cfg: ModelConfig,
             remat: bool = True):
     """``(loss, metrics)``: loss = ce + aux_loss + z_loss (the MoE terms
     where there are MoE layers); metrics = ``{ce, aux_loss, z_loss,
-    expert_load}`` (just ``ce`` without MoE layers)."""
+    expert_load}`` (just ``ce`` without MoE layers).  On ``DTensor``
+    parameters the loss and the metrics come back whole, as plain tensors
+    on every rank of the mesh (collective; the gradient flows back through
+    the gather)."""
     hidden, _, metrics = forward(params, tokens, cfg, remat=remat,
                                  differentiable=True)
     ce = chunked_cross_entropy(params, hidden, labels, cfg)
     loss = ce
     if metrics:
         loss = loss + metrics["aux_loss"] + metrics["z_loss"]
-    return loss, {"ce": ce, **metrics}
+    return gathered(loss), {"ce": gathered(ce),
+                            **{k: gathered(v) for k, v in metrics.items()}}
 
 
 # ---------------------------------------------------------------------------

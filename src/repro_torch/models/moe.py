@@ -36,13 +36,15 @@ ranked by a stable descending sort instead.
 
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.dist.hints import current_policy, local_call, shard_hint
+from repro_torch.dist.hints import (current_policy, local_call, shard_hint,
+                                    sharding_policy)
 from repro_torch.dist.sharding import P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn_block, init_ffn_params
@@ -100,23 +102,82 @@ def _num_groups(T: int) -> int:
     return g
 
 
-def _group_count(T: int) -> int:
-    """The policy's ``__moe_groups__`` when it divides the tokens (the
+# the hint sites that lay out the group dim, and that dim's entry in each
+_GROUP_DIM = {"moe_groups": 0, "moe_groups4": 0, "moe_logits": 0,
+              "moe_rows": 1, "moe_rows4": 1}
+
+
+def _group_shards(pol: dict) -> tuple[int, tuple]:
+    """(ranks, axes) the policy splits the group dim over: the product of
+    the mesh sizes of the axes its ``moe_groups`` (else ``moe_rows4``)
+    layout names for that dim."""
+    mesh = pol.get("__mesh__")
+    spec = pol.get("moe_groups") or pol.get("moe_rows4")
+    if mesh is None or spec is None:
+        return 1, ()
+    entry = spec[_GROUP_DIM["moe_groups" if "moe_groups" in pol
+                           else "moe_rows4"]]
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    n = 1
+    for a in axes:
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n, axes
+
+
+def _group_layout(T: int) -> tuple[int, dict | None]:
+    """(G, policy): the group count and, where the group dim cannot split
+    over the ranks the policy puts it on, the policy to run the block
+    under instead.
+
+    G is the policy's ``__moe_groups__`` when it divides the tokens (the
     count for which the (B, S, D) → (G, T_l, D) regroup splits at existing
-    shard boundaries), else :func:`_num_groups`."""
-    g = (current_policy() or {}).get("__moe_groups__")
+    shard boundaries), else :func:`_num_groups`, raised to a multiple of
+    the group dim's ranks when the tokens allow it (GSPMD pads a group dim
+    its ranks do not divide; a whole group a rank is the same work).  When
+    they do not (fewer tokens than ranks: a batch of one over a data axis),
+    the group dim is kept whole on every rank, which is the work a rank
+    does on GSPMD's padded dim too: the returned policy drops its axes from
+    the group dims' layouts.  So does a single group."""
+    pol = current_policy() or {}
+    g = pol.get("__moe_groups__")
     if g and T % g == 0:
-        return g
-    return _num_groups(T)
+        return g, None
+    g = _num_groups(T)
+    n, axes = _group_shards(pol)
+    if not axes or (g > 1 and g % n == 0):
+        return g, None
+    g2 = math.lcm(g, n)
+    if g2 > 1 and T % g2 == 0:
+        return g2, None
+    # a group dim of one cannot be split (DTensor will not view a sharded
+    # singleton dim away, even over a mesh dim of one)
+
+    def drop(spec, dim):
+        entry = spec[dim]
+        kept = tuple(a for a in (entry if isinstance(entry, tuple)
+                                 else (entry,)) if a not in axes)
+        out = list(spec)
+        out[dim] = kept if len(kept) > 1 else (kept[0] if kept else None)
+        return P(*out)
+
+    return g, {k: (drop(v, _GROUP_DIM[k]) if k in _GROUP_DIM else v)
+               for k, v in pol.items()}
 
 
 def _group_specs():
-    """(G, ·, ·) and (K, G, T_l) layouts of the dispatch: the policy's
-    ``moe_groups`` group axes, replicated without it."""
-    gspec = (current_policy() or {}).get("moe_groups")
-    if gspec is None:
+    """(G, ·, ·) and (K, G, T_l) layouts of the dispatch: the group axes of
+    the policy's ``moe_groups`` or, without it, of ``moe_rows4`` (the
+    batch's: the groups are the batch's rows regrouped, so each rank
+    routes its own tokens); replicated without either."""
+    pol = current_policy() or {}
+    if pol.get("moe_groups") is not None:
+        g = pol["moe_groups"][0]
+    elif pol.get("moe_rows4") is not None:
+        g = pol["moe_rows4"][1]
+    else:
         return P(), P()
-    return P(gspec[0], None, None), P(None, gspec[0], None)
+    return P(g, None, None), P(None, g, None)
 
 
 def capacity_for(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -147,11 +208,20 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
     """x: (B, S, D) → (out (B, S, D), metrics {aux_loss, z_loss,
     expert_load}), the load-balance and z losses (f32 scalars) and the
     tokens each expert kept (f32 (E,))."""
+    B, S, _ = x.shape
+    G, whole = _group_layout(B * S)
+    if whole is not None:
+        with sharding_policy(whole):
+            return _moe(params, x, cfg, G)
+    return _moe(params, x, cfg, G)
+
+
+def _moe(params: MoE, x: torch.Tensor, cfg: ModelConfig, G: int
+         ) -> tuple[torch.Tensor, dict]:
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = m.num_experts, m.top_k
-    G = _group_count(T)
     Tl = T // G
     C = capacity_for(cfg, Tl)
 

@@ -31,9 +31,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.hints import shard_hint
+from repro_torch.dist.hints import checkpointed, like, shard_hint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
@@ -174,7 +173,11 @@ def apply_sublayer(
                                      decode_pos=decode_pos)
     if cfg.post_block_norm:
         h = rms_norm(h, params.post_norm_1, cfg.norm_eps)
-    x = x + h
+    # the branch laid out as the residual stream before the add: the
+    # (sequence-parallel) reduce-scatter of its partial sums is then an
+    # explicit step, and its backward gathers the stream's gradient before
+    # the branch's matmuls see it
+    x = x + like(h, x)
     if slot["ffn"] != "none":
         h = rms_norm(x, params.norm_2, cfg.norm_eps)
         h = shard_hint(h, "sublayer_input")
@@ -184,7 +187,7 @@ def apply_sublayer(
             h = ffn_block(params.ffn, h, cfg)
         if cfg.post_block_norm:
             h = rms_norm(h, params.post_norm_2, cfg.norm_eps)
-        x = x + h
+        x = x + like(h, x)
     x = shard_hint(x, "layer_boundary")
     return x, metrics
 
@@ -225,8 +228,7 @@ def apply_stack(
         kw = dict(positions=positions, cache=c, decode_pos=decode_pos,
                   differentiable=differentiable)
         if remat and caches is None and torch.is_grad_enabled():
-            x, met = checkpoint(apply_sublayer, layer, x, cfg, slot,
-                                use_reentrant=False, **kw)
+            x, met = checkpointed(apply_sublayer, layer, x, cfg, slot, **kw)
         else:
             x, met = apply_sublayer(layer, x, cfg, slot, **kw)
         for k, v in met.items():

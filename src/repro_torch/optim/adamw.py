@@ -16,6 +16,13 @@ f32 transients of one leaf at most.  The reference bounds those transients
 further for stacked leaves above ``SCAN_THRESHOLD`` elements by scanning
 over the layer axis; each slice is updated elementwise, so the scan changes
 no value, and the port's leaves are one layer each and need none.
+
+On a mesh the leaves, gradients and moments are ``DTensor`` s (the
+trainer's tensor-parallel step) and the same code runs on them:
+``DTensor`` makes the global norm's sums and an int8 row's absmax over a
+last dim split across ranks whole-row reductions (a collective over the
+ranks holding the row), and each stored moment keeps the layout it had
+(``opt_pspecs``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 
 @dataclass(frozen=True)
@@ -80,23 +88,46 @@ def init_opt_state(params: dict[str, torch.Tensor], cfg: AdamWConfig) -> dict:
             "v": {k: zero(p, True) for k, p in params.items()}}
 
 
-def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads))
+def _global_norm(grads, weights=None) -> torch.Tensor:
+    """The f32 norm of ``grads`` (name → tensor); ``weights`` (name →
+    float, default 1) scale each leaf's sum of squares."""
+    total = 0
+    for k, g in grads.items():
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        w = (weights or {}).get(k)
+        total = total + (sq if w is None else sq * w)
+    return torch.sqrt(total)
+
+
+def _as_layout_of(new, old):
+    """``new`` (a stored moment) in ``old``'s ``DTensor`` layout."""
+    if isinstance(new, dict):
+        return {k: _as_layout_of(v, old[k]) for k, v in new.items()}
+    if hasattr(old, "placements") and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 @torch.no_grad()
 def adamw_update(grads: dict[str, torch.Tensor], state: dict,
-                 params: dict[str, torch.Tensor], cfg: AdamWConfig):
+                 params: dict[str, torch.Tensor], cfg: AdamWConfig, *,
+                 norm_weights: dict[str, float] | None = None):
     """One AdamW step over ``params`` (name → tensor) with ``grads`` of the
     same names.  Writes the parameters and ``state``'s moments in place and
     returns ``(params, state, {"grad_norm", "lr"})``: clipping by the f32
     global norm, decay on leaves of two or more dims only, the bias
-    corrections from the f32 step."""
+    corrections from the f32 step.  ``norm_weights`` scale leaves' squares
+    in the norm (a head-padded tree's copied KV heads count once:
+    ``dist.sharding.grad_norm_weights``)."""
+    with implicit_replication():
+        return _update(grads, state, params, cfg, norm_weights)
+
+
+def _update(grads, state, params, cfg, norm_weights):
     step = state["step"] + 1
     lr = (cfg.learning_rate(step) if callable(cfg.learning_rate)
           else cfg.learning_rate)
-    gnorm = _global_norm(grads[k] for k in params)
+    gnorm = _global_norm({k: grads[k] for k in params}, norm_weights)
     if cfg.grad_clip_norm is not None:
         scale = torch.clamp_max(
             cfg.grad_clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -117,8 +148,10 @@ def adamw_update(grads: dict[str, torch.Tensor], state: dict,
         if cfg.weight_decay and p.dim() >= 2:      # decay matrices only
             pf = pf * (1.0 - lr * cfg.weight_decay)
         p.copy_(pf - lr * upd)
-        state["m"][name] = _store_moment(m, cfg.moment_dtype)
-        state["v"][name] = _store_moment(v, cfg.moment_dtype, True)
+        state["m"][name] = _as_layout_of(
+            _store_moment(m, cfg.moment_dtype), state["m"][name])
+        state["v"][name] = _as_layout_of(
+            _store_moment(v, cfg.moment_dtype, True), state["v"][name])
     state["step"] = step
     lr_t = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
     return params, state, {"grad_norm": gnorm, "lr": lr_t}

@@ -64,8 +64,10 @@ import torch.distributed as dist
 from repro_torch.core import heft_rt_numpy
 from repro_torch.dist.hints import gathered, is_dtensor, sharding_policy
 from repro_torch.dist.sharding import (MeshAxes, from_local_like, mesh_root,
-                                       named, replica_pspecs, reshard_tree,
-                                       to_plain)
+                                       model_axis_size, named, pad_caches,
+                                       pad_params, padded_config,
+                                       replica_pspecs, reshard_tree, to_plain,
+                                       unpad_caches, unpad_params)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import (cache_specs, decode_step, init_cache,
@@ -95,23 +97,6 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _check_head_split(cfg: ModelConfig, mesh, axes: MeshAxes) -> None:
-    """Raise unless the attention heads split evenly over the mesh's model
-    axis.  The attention core runs on each rank's own heads (KV heads over
-    ``model`` too), so a count the axis does not divide (GSPMD pads it in
-    the reference) is not supported."""
-    names = mesh.mesh_dim_names
-    m = mesh.size(names.index(axes.model)) if axes.model in names else 1
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    heads = ((cfg.num_heads,) if cfg.attn_type == "mla"
-             else (cfg.num_heads, cfg.num_kv_heads))
-    if "attn" in kinds and any(h % m for h in heads):
-        raise NotImplementedError(
-            f"{cfg.name}: {heads} attention heads do not split over a model "
-            f"axis of {m} (uneven head sharding is not ported; ROADMAP "
-            f"queue 1 item 11c)")
-
-
 def _set_params(shell: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """``shell`` (a parameter-shaped module) holding ``tree``'s tensors."""
     for name, t in tree.items():
@@ -131,7 +116,11 @@ class ServeEngine:
     parameters are placed once by ``replica_pspecs`` (the engine keeps its
     own module of ``DTensor`` parameters; the caller's stays as it is), the
     caches and pools live sharded on the slice (KV heads over ``model``),
-    and every step runs under the replica's hint policy.
+    and every step runs under the replica's hint policy.  Head counts the
+    model axis does not divide are padded on the slice
+    (``dist.sharding.head_padding``): the steps run ``run_cfg``, the
+    padded config, while ``cfg``, the caller's parameters, snapshots and
+    ``reshard(None)`` keep the unpadded layout.
     """
 
     cfg: ModelConfig
@@ -156,16 +145,21 @@ class ServeEngine:
         if self.mesh is None:
             self._policy = self._cache_sh = None
             self._member = True
+            self._m = 1
+            self.run_cfg = self.cfg
             return
         self.axes = self.axes or MeshAxes()
-        _check_head_split(self.cfg, self.mesh, self.axes)
-        specs = replica_pspecs(self.cfg, self.axes, fsdp=self.fsdp)
+        self._m = model_axis_size(self.mesh, self.axes)
+        self.run_cfg = padded_config(self.cfg, self._m)
+        specs = replica_pspecs(self.run_cfg, self.axes, fsdp=self.fsdp)
         self._policy = dict(specs["policy"], __mesh__=self.mesh)
         self._cache_sh = named(self.mesh, specs["cache"])
         self._member = self.mesh.get_coordinate() is not None
-        tree = {n: p.detach() for n, p in self.params.named_parameters()}
+        tree = pad_params({n: p.detach() for n, p
+                           in self.params.named_parameters()},
+                          self.cfg, self._m)
         placed = reshard_tree(tree, named(self.mesh, specs["params"]))
-        self.params = _set_params(param_specs(self.cfg), placed)
+        self.params = _set_params(param_specs(self.run_cfg), placed)
 
     @property
     def device(self) -> torch.device:
@@ -206,20 +200,33 @@ class ServeEngine:
         """Shape-only caches on the ranks outside the mesh."""
         return {name: torch.empty((s.shape[0], rows, *s.shape[2:]),
                                   dtype=s.dtype, device="meta")
-                for name, s in cache_specs(self.cfg, 1, self.max_len).items()}
+                for name, s in cache_specs(self.run_cfg, 1,
+                                           self.max_len).items()}
 
     def _prefill(self, tokens):
         caches = None
         if self._cache_sh is not None:
-            caches = reshard_tree(init_cache(self.cfg, tokens.shape[0],
+            caches = reshard_tree(init_cache(self.run_cfg, tokens.shape[0],
                                              self.max_len,
                                              device=self.device),
                                   self._cache_sh)
-        return prefill_step(self.params, tokens, self.cfg,
+        return prefill_step(self.params, tokens, self.run_cfg,
                             max_len=self.max_len, caches=caches)
 
     def _decode(self, caches, tok, pos):
-        return decode_step(self.params, caches, tok, pos, self.cfg)
+        return decode_step(self.params, caches, tok, pos, self.run_cfg)
+
+    def _plain_caches(self, caches, src) -> dict:
+        """A cache tree of this slice whole and unpadded on every rank."""
+        return unpad_caches(to_plain(caches, self.device, src=src),
+                            self.cfg, self._m)
+
+    def _place_caches(self, caches) -> dict:
+        """An unpadded plain cache tree laid out on this slice."""
+        if self._cache_sh is None:
+            return caches
+        return reshard_tree(pad_caches(caches, self.cfg, self._m),
+                            self._cache_sh)
 
     def reshard(self, mesh, axes: MeshAxes | None = None, caches=None):
         """Migrate this *live* replica to another mesh slice, in memory.
@@ -236,14 +243,15 @@ class ServeEngine:
             old_root = (mesh_root(self.mesh) if self.mesh is not None
                         else None)
             if caches is not None:
-                caches = to_plain(caches, self.device, src=old_root)
+                caches = self._plain_caches(caches, old_root)
             if self._paged is not None:
-                self._paged.pool.pools = to_plain(self._paged.pool.pools,
-                                                  self.device, src=old_root)
+                self._paged.pool.pools = self._plain_caches(
+                    self._paged.pool.pools, old_root)
             if self.mesh is not None:
                 tree = to_plain({n: p.detach() for n, p
                                  in self.params.named_parameters()},
                                 self.device)
+                tree = unpad_params(tree, self.cfg, self._m)
                 self.params = _set_params(param_specs(self.cfg), tree)
             self.mesh = mesh
             if axes is not None:
@@ -251,8 +259,8 @@ class ServeEngine:
             self._build()
             if self._paged is not None:
                 self._paged.rebind()
-            if caches is not None and self._cache_sh is not None:
-                caches = reshard_tree(caches, self._cache_sh)
+            if caches is not None:
+                caches = self._place_caches(caches)
             return caches
 
     def snapshot_caches(self, caches) -> dict:
@@ -263,7 +271,7 @@ class ServeEngine:
         with _span(self.tracer, "engine.snapshot"):
             src = mesh_root(self.mesh) if self.mesh is not None else None
             return {name: c.cpu().numpy() for name, c in
-                    to_plain(caches, self.device, src=src).items()}
+                    self._plain_caches(caches, src).items()}
 
     def restore_caches(self, caches) -> dict:
         """A :meth:`snapshot_caches` tree back on this engine: on its
@@ -271,9 +279,7 @@ class ServeEngine:
         with _span(self.tracer, "engine.restore"):
             tree = {name: torch.from_numpy(np.ascontiguousarray(c))
                     .to(self.device) for name, c in caches.items()}
-            if self._cache_sh is not None:
-                tree = reshard_tree(tree, self._cache_sh)
-            return tree
+            return self._place_caches(tree)
 
     def start(self, prompts: np.ndarray):
         """Prefill: (B, S0) prompts → (logits (B, V), caches padded to the

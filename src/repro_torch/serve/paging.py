@@ -71,7 +71,10 @@ with room.
 **On a mesh.**  A mesh-backed engine's pools are ``DTensor``s laid out by
 ``page_pspecs`` (the cache rule with the page axis replicated: KV heads and
 Mamba's d_inner over ``model``), and :meth:`PagedRuntime.rebind` places
-them again after ``ServeEngine.reshard``.  The page gather, the token
+them again after ``ServeEngine.reshard``.  The pool is made unpadded; on a
+slice whose model axis pads the heads its KV heads are padded as the
+engine's are (``dist.sharding.pad_caches``), and page snapshots leave it
+unpadded again.  The page gather, the token
 scatter and the admission write have no ``DTensor`` rule; they index the
 page / slot axes, which are never sharded, so they run on each rank's
 local shard (``dist.hints.local_call``) in the same layout as the dense
@@ -94,8 +97,9 @@ import numpy as np
 import torch
 
 from repro_torch.dist.hints import gathered, local_call
-from repro_torch.dist.sharding import (mesh_root, named, page_pspecs,
-                                       reshard_tree, to_plain)
+from repro_torch.dist.sharding import (mesh_root, named, pad_caches,
+                                       page_pspecs, reshard_tree, to_plain,
+                                       unpad_caches)
 from repro_torch.kernels import decision_hw, pack_tick_outputs
 from repro_torch.kernels.fused_decision import unpack_decision
 from repro_torch.models.model import cache_specs
@@ -255,9 +259,10 @@ class PagedRuntime:
         if eng.mesh is None:
             self._specs = dict.fromkeys(self.pool.pools)
             return
-        self._specs = page_pspecs(eng.cfg, eng.axes)
-        self.pool.pools = reshard_tree(self.pool.pools,
-                                       named(eng.mesh, self._specs))
+        self._specs = page_pspecs(eng.run_cfg, eng.axes)
+        self.pool.pools = reshard_tree(
+            pad_caches(self.pool.pools, eng.cfg, eng._m),
+            named(eng.mesh, self._specs))
 
     def rebind(self) -> None:
         """Re-place the pools after ``ServeEngine.reshard`` (which brings
@@ -485,8 +490,9 @@ class PagedRuntime:
                     else torch.empty((pool.shape[0],
                                       *_take_shape(pool, name, row)),
                                      dtype=pool.dtype, device="meta"))
-            pages[name] = to_plain({name: vals}, eng.device,
-                                   src=src)[name].cpu().numpy()
+            whole = unpad_caches(to_plain({name: vals}, eng.device, src=src),
+                                 eng.cfg, eng._m)
+            pages[name] = whole[name].cpu().numpy()
         return {"pages": pages, "prompt": rec.prompt.copy(),
                 "new_tokens": rec.new_tokens, "tokens": list(rec.tokens)}
 
@@ -513,7 +519,7 @@ class PagedRuntime:
                 snap["pages"][name])).to(eng.device)
             spec = self._specs[name]
             if spec is not None:
-                vals = reshard_tree({name: vals},
+                vals = reshard_tree(pad_caches({name: vals}, eng.cfg, eng._m),
                                     named(eng.mesh, {name: spec}))[name]
             if eng._member:
                 local_call(lambda p, v: put(p, v, name), (pool, vals),

@@ -232,6 +232,54 @@ def test_shard_hint_is_an_identity_without_a_policy_or_a_dtensor():
         .equal(x + 1.0)
 
 
+def test_policies_are_a_threads_and_recomputes_run_under_the_callers():
+    """The policy stack is a thread's own: another thread sees none while
+    one is installed here.  A ``checkpointed`` function's recompute, and
+    the embedding gradient's hint, run under the forward's policy when the
+    backward runs on another thread (as the card's autograd engine runs
+    it)."""
+    import threading
+
+    from repro_torch.dist.hints import checkpointed, current_policy
+    from repro_torch.models.model import _EmbedGradHint
+
+    def on_thread(fn):
+        out = []
+        t = threading.Thread(target=lambda: out.append(fn()))
+        t.start()
+        t.join()
+        return out[0]
+
+    pol = {"embed_grad": P("model", None)}
+    seen = []
+
+    def f(x):
+        seen.append(current_policy())
+        return x * x
+
+    x = torch.ones(3, requires_grad=True)
+    w = torch.ones(2, 2, requires_grad=True)
+    with sharding_policy(pol):
+        assert on_thread(current_policy) is None
+        y = checkpointed(f, x).sum() + _EmbedGradHint.apply(w).sum()
+    hinted = []
+    real = shard_hint.__globals__["shard_hint"]
+
+    def spy(g, name):
+        hinted.append((name, current_policy()))
+        return real(g, name)
+
+    import repro_torch.models.model as model_mod
+    model_mod.shard_hint, saved = spy, model_mod.shard_hint
+    try:
+        on_thread(y.backward)
+    finally:
+        model_mod.shard_hint = saved
+    assert seen == [pol, pol]
+    assert hinted == [("embed_grad", pol)]
+    assert torch.equal(x.grad, torch.full((3,), 2.0))
+
+
 def _hint_sites(path: Path):
     """The site names of ``shard_hint(x, "name")`` calls in ``path``."""
     tree = ast.parse(path.read_text())

@@ -166,14 +166,6 @@ while not e.finished_slots():
     e.decode_tick()
 moves.append(np.array_equal(e.retire(slot2), want[0]))
 RESULT['moves'] = np.array(moves)
-# a head count the model axis does not divide (chameleon's one KV head
-# over 2) raises on every rank
-try:
-    ServeEngine(get_smoke_config('chameleon_34b'),
-                params, max_len=64, mesh=m22)
-    RESULT['uneven'] = np.array('no error')
-except NotImplementedError as err:
-    RESULT['uneven'] = np.array(str(err))
 """
 
 FAMILIES = ["gemma2_9b", "falcon_mamba_7b", "jamba_v0_1_52b",
@@ -288,12 +280,157 @@ def test_reshard_across_slices_in_mid_generation_is_token_identical(port):
         assert list(r["moves"]) == [True] * 7, r["moves"]
 
 
-def test_uneven_head_split_raises(port):
-    """ROADMAP queue 1 item 11c: the attention core runs on each rank's
-    own heads, so a head count the model axis does not divide raises (the
-    reference's GSPMD pads it)."""
-    for r in port:
-        assert "do not split over a model axis of 2" in str(r["uneven"])
+# Smoke configs whose heads a model axis of 2 or 4 does not divide (q / KV
+# heads): chameleon 8 / 1, yi and arctic 7 / 1, phi3 4 / 1, gemma2 4 / 2,
+# musicgen 6 / 6.  The replica pads them on its slice (ROADMAP queue 1
+# item 11c): KV heads copied within their group, zero query heads with
+# zero rows of ``wo``.
+UNEVEN = ["chameleon_34b", "yi_34b", "arctic_480b", "phi3_medium_14b",
+          "gemma2_9b", "musicgen_medium"]
+
+UNEVEN_CODE = """
+from repro_torch.configs import get_smoke_config
+from repro_torch.dist.sharding import head_padding
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import init_params
+from repro_torch.serve import ServeEngine
+
+meshes = {2: make_debug_mesh((2, 2), device='cpu'),
+          4: make_debug_mesh((1, 4), device='cpu')}
+for arch in ARCHS:
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device='cpu')
+    plain = ServeEngine(cfg, params, max_len=32, lanes=4)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 8).astype(np.int32)
+    RESULT[f'{arch}|gen'] = plain.generate(prompt[None], 4)
+    RESULT[f'{arch}|logits'] = plain.start(prompt[None])[0].numpy()
+    for m, mesh in meshes.items():
+        key = f'{arch}|{m}'
+        eng = ServeEngine(cfg, params, max_len=32, lanes=4, mesh=mesh)
+        hp = head_padding(cfg, m)
+        RESULT[key + '|padded'] = np.array(hp is not None)
+        RESULT[key + '|heads'] = np.array([eng.run_cfg.num_heads,
+                                           eng.run_cfg.num_kv_heads])
+        wq = eng.params.layers[0].mixer.wq
+        RESULT[key + '|wq'] = np.array([wq.shape[1],
+                                        wq.to_local().shape[1]])
+        RESULT[key + '|mgen'] = eng.generate(prompt[None], 4)
+        RESULT[key + '|mlogits'] = eng.start(prompt[None])[0].numpy()
+        eng.start_paged(max_batch=2, page_size=8)
+        slot = eng.admit(prompt, 4)
+        while not eng.finished_slots():
+            eng.decode_tick()
+        RESULT[key + '|paged'] = eng.retire(slot)
+        eng.reshard(None)
+        ref = dict(params.named_parameters())
+        RESULT[key + '|back'] = np.array(all(
+            not hasattr(p, 'to_local') and torch.equal(p, ref[n])
+            for n, p in eng.params.named_parameters()))
+"""
+
+# deepseek-v2's MLA with the batch over data: prefill_step / decode_step
+# on a 2x2 (data, model) mesh laid out as the dry run lays them out (the
+# latent cache batch-sharded, heads over model).
+MLA_CODE = """
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke_config
+from repro_torch.dist.hints import gathered, sharding_policy
+from repro_torch.dist.sharding import (MeshAxes, activation_hint_policy,
+                                       batch_pspec, cache_pspecs, named,
+                                       param_pspecs, reshard_tree)
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import init_params
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.model import decode_step, init_cache, prefill_step
+from repro_torch.serve.engine import _set_params
+
+cfg = get_smoke_config('deepseek_v2_236b')
+params = init_params(cfg, torch.Generator().manual_seed(0), device='cpu')
+mesh = make_debug_mesh((2, 2), device='cpu')
+ax = MeshAxes()
+B, S, new = 4, 8, 3
+shape = ShapeConfig('t', 'prefill', S + new, B)
+tokens = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, (B, S)).astype(np.int32))
+placed = reshard_tree({n: p.detach() for n, p in params.named_parameters()},
+                      named(mesh, param_pspecs(cfg, ax)))
+mparams = _set_params(init_params(cfg, device='meta'), placed)
+cache_sh = named(mesh, cache_pspecs(cfg, ax, shape))
+RESULT['cache_spec'] = np.array(str(cache_pspecs(cfg, ax, shape)['ckv']))
+
+def run(p, caches, tok, policy):
+    outs = []
+    with torch.no_grad(), implicit_replication(), sharding_policy(policy):
+        logits, caches = prefill_step(p, tok, cfg, caches=caches)
+        outs.append(gathered(logits))
+        for i in range(new):
+            nxt = outs[-1].argmax(-1).to(torch.int32)[:, None]
+            if policy:
+                nxt = reshard_tree(nxt, named(mesh, batch_pspec(ax)))
+            logits, caches = decode_step(p, caches, nxt, S + i, cfg)
+            outs.append(gathered(logits))
+    return torch.stack(outs).numpy()
+
+RESULT['plain'] = run(params, init_cache(cfg, B, S + new, device='cpu'),
+                      tokens, {})
+policy = dict(activation_hint_policy(cfg, ax, ShapeConfig('t', 'decode', S,
+                                                          B)),
+              __mesh__=mesh)
+caches = reshard_tree(init_cache(cfg, B, S + new, device='cpu'), cache_sh)
+RESULT['meshed'] = run(mparams, caches,
+                       reshard_tree(tokens, named(mesh, batch_pspec(ax))),
+                       policy)
+RESULT['local_ckv'] = np.array(caches['ckv'].to_local().shape)
+"""
+
+
+@pytest.fixture(scope="module")
+def uneven(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("uneven")
+    return run_ranks(f"ARCHS = {UNEVEN!r}\n" + UNEVEN_CODE, 4, tmp,
+                     timeout=600)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_uneven_heads_are_padded_and_serve_the_meshless_tokens(uneven, m):
+    """Each smoke config with heads the model axis does not divide, on a
+    (2, 2) and a (1, 4) mesh of 4 ranks: the heads are padded (``wq`` has
+    the padded columns, a rank an even share), greedy tokens are bitwise
+    the meshless engine's, dense and paged, logits within the f32
+    reordering bound, and ``reshard(None)`` gives back the unpadded
+    leaves bitwise."""
+    for r in uneven:
+        padded = 0
+        for arch in UNEVEN:
+            key = f"{arch}|{m}"
+            padded += bool(r[key + "|padded"])
+            hq, hkv = r[key + "|heads"]
+            assert hq % m == 0 and hkv % m == 0 and hq % hkv == 0, key
+            cols, local = r[key + "|wq"]
+            assert local * m == cols, key
+            np.testing.assert_array_equal(r[key + "|mgen"], r[f"{arch}|gen"])
+            np.testing.assert_array_equal(r[key + "|paged"],
+                                          r[f"{arch}|gen"][0])
+            np.testing.assert_allclose(r[key + "|mlogits"],
+                                       r[f"{arch}|logits"],
+                                       atol=ATOL, rtol=RTOL)
+            assert bool(r[key + "|back"]), key
+        assert padded >= 4, (m, padded)
+
+
+def test_mla_with_the_batch_split_over_data(tmp_path):
+    """deepseek-v2's smoke MLA prefill and three decode steps with the
+    batch over ``data`` and the heads over ``model`` on a 2x2 mesh: the
+    latent cache and ``ckv`` / ``kr`` take the batch's layout (each rank
+    holds half the rows), and the logits equal the meshless steps' within
+    the f32 reordering bound."""
+    res = run_ranks(MLA_CODE, 4, tmp_path, timeout=300)
+    for r in res:
+        assert str(r["cache_spec"]) == "P(None, 'data', None, None)"
+        assert tuple(r["local_ckv"])[1] == 2            # 4 rows over data
+        np.testing.assert_allclose(r["meshed"], r["plain"], atol=ATOL,
+                                   rtol=RTOL)
 
 
 def test_every_block_kind_on_a_two_by_two_mesh(tmp_path):
