@@ -1434,12 +1434,129 @@ def phase_dist_serve(torch, K, cfg, params, seed: int, card: str) -> dict:
         f"meshless {p['tick_ms']:.6f} ms ({p['aten_ops_per_tick']} aten "
         f"ops); carrying a decision: meshed {m['fused_tick_ms']:.6f} ms, "
         f"meshless {p['fused_tick_ms']:.6f} ms")
+    layouts = mesh_layouts(torch, cfg, params, eng.mesh, seed, card)
     return {"card": card, "wall_s": wall, "new_tokens": new,
             "ticks": stats["ticks"], "launches": counts,
             "meshed_ticks": in_mesh[0], "meshed_launches": in_mesh[1],
             "fused_decisions": stats["fused_decisions"],
             "host_decisions": stats["host_decisions"],
-            "pages": stats["allocated"], "timing": timing}
+            "pages": stats["allocated"], "timing": timing,
+            "layouts": layouts}
+
+
+LAYOUT_VARIANTS = ("qpos", "flashdecode")
+LAYOUT_LANES, LAYOUT_PROMPT, LAYOUT_STEPS = 2, 16, 3
+
+
+def mesh_layouts(torch, cfg, params, mesh, seed: int, card: str) -> dict:
+    """``cfg`` at full width on ``mesh`` (the (1, 1) slice of the nccl
+    world of one process) under the twin hillclimb's
+    :data:`LAYOUT_VARIANTS` (their policies, parameter and cache layouts):
+    a :data:`LAYOUT_PROMPT`-token prefill of :data:`LAYOUT_LANES` rows and
+    :data:`LAYOUT_STEPS` greedy decode steps against the meshless run of
+    the same weights.
+
+    Bound, set before the run: greedy tokens equal, logits within one bf16
+    spacing of the largest logit (``2^-7 · max|logit|``).  On a (1, 1)
+    mesh every split is over an axis of one, so each op is the meshless
+    op on the whole tensor and the logits are expected bitwise; the query
+    positions and the cache's sequence stay whole, so this drives the
+    layouts' paths through ``DTensor`` on the card, not their splits (the
+    CPU tests split them over 4 ranks; :func:`card_flash_decode` runs the
+    split core at full width)."""
+    import importlib.util
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist.hints import sharding_policy
+    from repro_torch.dist.sharding import (MeshAxes, model_axis_size, named,
+                                           pad_params, reshard_tree)
+    from repro_torch.launch.dryrun import (HILLCLIMB, _params_module,
+                                           step_layout)
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    from repro_torch.models.config import ShapeConfig
+
+    spec = importlib.util.spec_from_file_location("port_hillclimb",
+                                                  HILLCLIMB)
+    hc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hc)
+    ax = MeshAxes()
+    B, S, steps = LAYOUT_LANES, LAYOUT_PROMPT, LAYOUT_STEPS
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=DEVICE)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def run(variant):
+        """Last-token logits of the prefill and each decode step, and the
+        greedy tokens, under ``variant`` (None: meshless)."""
+        logits, toks = [], []
+        p, tk, caches = params, tokens, init_cache(cfg, B, S + steps,
+                                                   device=DEVICE)
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.no_grad())
+        policies = {}
+        if variant is not None:
+            for kind in ("prefill", "decode"):
+                shape = ShapeConfig(kind, kind, S + steps, B)
+                policies[kind], specs = step_layout(
+                    cfg, shape, mesh, ax,
+                    **hc.variant_kwargs(variant, cfg, shape, ax))
+            # as a replica places them (a variant's weight layout is the
+            # same for both kinds)
+            tree = pad_params({n: t.detach() for n, t
+                               in params.named_parameters()}, cfg,
+                              model_axis_size(mesh, ax))
+            p = _params_module(cfg, reshard_tree(tree, named(
+                mesh, specs["params"])), requires_grad=False)
+            tk = reshard_tree(tokens, named(mesh, specs["batch"]))
+            caches = reshard_tree(caches, named(mesh, specs["caches"]))
+            ctx.enter_context(implicit_replication())
+
+        def policy(kind):
+            return (sharding_policy(policies[kind]) if variant is not None
+                    else contextlib.nullcontext())
+
+        with ctx:
+            with policy("prefill"):
+                lg, caches = prefill_step(p, tk, cfg, caches=caches)
+            for t in range(steps + 1):
+                lg = whole(lg).float()
+                logits.append(lg)
+                nxt = lg.argmax(-1).to(torch.int32)
+                toks.append(nxt)
+                if t == steps:
+                    break
+                tok = nxt[:, None]
+                if variant is not None:
+                    tok = reshard_tree(tok, named(mesh, specs["batch"]))
+                with policy("decode"):
+                    lg, caches = decode_step(p, caches, tok, S + t, cfg)
+        return torch.stack(logits), torch.stack(toks)
+
+    want, want_toks = run(None)
+    out = {}
+    for variant in LAYOUT_VARIANTS:
+        got, toks = run(variant)
+        free_card(torch)
+        err = max_abs_err(got, want)
+        lim = 2.0 ** -7 * float(want.abs().max())
+        require(torch.equal(toks, want_toks),
+                f"layout {variant!r} on (1, 1): greedy tokens differ from "
+                f"the meshless run")
+        require(err <= lim, f"layout {variant!r} on (1, 1): logits "
+                            f"{err:.6e} from the meshless run, bound "
+                            f"{lim:.6e}")
+        out[variant] = {"max_abs_err": err, "bound": lim,
+                        "bitwise": bool(torch.equal(got, want))}
+        log(f"[dist-serve] {card} | layout {variant!r} on the (1, 1) mesh: "
+            f"a {S}-token prefill of {B} rows and {steps} greedy decode "
+            f"steps, logits {err:.6e} from the meshless run (bound "
+            f"{lim:.6e}, bitwise {out[variant]['bitwise']}), greedy tokens "
+            f"equal")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1545,17 +1662,29 @@ DRYRUN_CELLS = (("deepseek-7b", "decode_32k", "both"),
                 ("deepseek-v2-236b", "decode_32k", "single"))
 DRYRUN_TIMEOUT_S = 600
 CARD_DECODE_LANES, CARD_DECODE_CACHE = 4, 2048
+# layout variants of experiments/port/hillclimb.py on the 16x16 mesh: each
+# computes its base cell's function, so a dense cell counts its FLOPs
+DRYRUN_VARIANTS = (("deepseek-7b", "decode_32k", "nofsdp"),
+                   ("deepseek-7b", "decode_32k", "flashdecode"),
+                   ("deepseek-7b", "decode_32k", "qpos"),
+                   ("deepseek-7b", "prefill_32k", "qpos"),
+                   ("deepseek-7b", "prefill_32k", "qpos+kvg"),
+                   ("deepseek-7b", "train_4k", "qpos+kvg+tponly"))
 
 
 def run_dryrun_cells() -> tuple[dict, Path]:
-    """The dry run's CLI for :data:`DRYRUN_CELLS`, one process each (a fake
-    world needs a process of its own), all at once, through
-    ``launch.dryrun.run_cells``; returns the cells and their directory."""
+    """The dry run's CLI for :data:`DRYRUN_CELLS` and the twin hillclimb's
+    for :data:`DRYRUN_VARIANTS`, one process each (a fake world needs a
+    process of its own), all at once through ``launch.dryrun.run_cells``;
+    returns the cells, keyed ``(arch, shape, mesh)`` or ``(arch, shape,
+    "single", variant)``, and the base cells' directory."""
     from repro_torch.launch import dryrun
 
     keys = [(arch, shape, kind) for arch, shape, mesh in DRYRUN_CELLS
             for kind in (("single", "multi") if mesh == "both" else (mesh,))]
-    res = dryrun.run_cells([(a, s, k == "multi") for a, s, k in keys],
+    keys += [(arch, shape, "single", v) for arch, shape, v in DRYRUN_VARIANTS]
+    res = dryrun.run_cells([(k[0], k[1], k[2] == "multi", *k[3:])
+                            for k in keys],
                            jobs=len(keys), timeout=DRYRUN_TIMEOUT_S)
     cells = dict(zip(keys, res))
     for key, cell in cells.items():
@@ -1650,15 +1779,18 @@ def dryrun_flop_bounds(cell: dict) -> tuple[float, float]:
 
 def check_dryrun_cells(cells: dict, art: Path) -> dict:
     """Rank 0's FLOPs of each cell within :func:`dryrun_flop_bounds`, the
-    heads it ran those of ``padded_config`` over the model axis of 16; the
-    cells cover a (deepseek-7b, (16, 16)) replica in
-    ``CostModelRegistry``."""
+    heads it ran those of ``padded_config`` over the model axis of 16, a
+    layout variant's FLOPs those of its base cell (the models are dense:
+    every layout computes the same products); the cells cover a
+    (deepseek-7b, (16, 16)) replica in ``CostModelRegistry``."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import padded_config
     from repro_torch.sched_integration import CostModelRegistry, Replica
 
     out = {}
-    for (arch, shape_name, mesh), cell in cells.items():
+    for key, cell in cells.items():
+        arch, shape_name, mesh = key[:3]
+        variant = key[3] if len(key) > 3 else None
         cfg = padded_config(get_config(arch), 16)
         require(list(cell["run_heads"]) == [cfg.num_heads, cfg.num_kv_heads],
                 f"{arch}: the cell ran heads {cell['run_heads']}")
@@ -1668,15 +1800,24 @@ def check_dryrun_cells(cells: dict, art: Path) -> dict:
         require(lo <= flops <= hi,
                 f"{arch} {shape_name} x {cell['mesh']}: {flops:.6e} FLOPs a "
                 f"device outside [{lo:.6e}, {hi:.6e}]")
+        if variant is not None:
+            # a layout of a dense model: its base cell's function and work
+            base = cells[(arch, shape_name, mesh)]["flops_per_device"]
+            require(flops == base,
+                    f"{arch} {shape_name} x {cell['mesh']} '{variant}': "
+                    f"{flops:.6e} FLOPs a device, its base cell {base:.6e}")
         coll = cell["collectives"]
-        out[f"{arch}_{shape_name}_{mesh}"] = dict(
+        name = f"{arch}_{shape_name}_{mesh}" + (f"_{variant}" if variant
+                                                else "")
+        out[name] = dict(
             {k: cell[k] for k in ("mesh", "num_devices", "flops_per_device",
                                   "bytes_accessed_per_device", "ops",
                                   "trace_s", "wall_s", "run_heads")},
             flops_lo=lo, flops_hi=hi,
             wire_bytes=coll["total_wire_bytes_per_device"],
             collectives=coll["count_by_op"])
-        log(f"[dryrun] {arch} {shape_name} x {cell['mesh']} ({n} fake "
+        tag = f" '{variant}'" if variant else ""
+        log(f"[dryrun] {arch} {shape_name} x {cell['mesh']}{tag} ({n} fake "
             f"ranks, heads {cell['run_heads']}): {flops:.6e} FLOPs a device "
             f"(bounds {lo:.6e} .. {hi:.6e}; {flops / lo:.6f} x the floor, "
             f"{flops / hi:.6f} x the ceiling), "
@@ -1684,6 +1825,7 @@ def check_dryrun_cells(cells: dict, art: Path) -> dict:
             f"{coll['total_wire_bytes_per_device']:.6e} wire bytes "
             f"{coll['count_by_op']}, {cell['ops']} ops recorded in "
             f"{cell['trace_s']} s ({cell['wall_s']} s its process)")
+    # the base cells (the variants' artifacts lie in variants/ below them)
     reg = CostModelRegistry()
     out["registered"] = reg.load_dir(str(art))
     require(reg.covers(Replica("dryrun", 1.0, 1.0, arch=DRYRUN_ARCH,
@@ -1738,10 +1880,70 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
             "ms": ms, "counted_bytes_ms": bytes_ms, "build": build}
 
 
+FLASH_SLICES = 4          # key slices of the card's flash-decode check
+
+
+def card_flash_decode(torch, cfg, seed: int, card: str) -> dict:
+    """Flash-decode's partial / combine core (``models.attention
+    .decode_partials`` on each key slice, ``merge_partials`` over them) at
+    ``cfg``'s full attention width against the unsplit
+    ``decode_attention``, on the card: :data:`CARD_DECODE_LANES` rows at
+    their own positions in a :data:`CARD_DECODE_CACHE`-slot cache split
+    into :data:`FLASH_SLICES` key slices, as the ranks of a model axis of
+    4 hold it.  Inputs are drawn from a seeded generator in float32 and
+    the two run on the same values.
+
+    Bound, set before the run: ``Smax · 2^-23 · max|v|``, the float32
+    rounding an ordered sum of ``Smax`` weighted values can gather (each
+    side normalises and sums in its own order); the bf16 outputs (the
+    model's compute dtype, both from float32 sums) within one bf16 spacing
+    of the largest output, ``2^-7 · max|v|``."""
+    from repro_torch.models.attention import (decode_attention,
+                                              decode_partials, merge_partials)
+
+    B, S, R = CARD_DECODE_LANES, CARD_DECODE_CACHE, FLASH_SLICES
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(B, 1, H, hd, generator=gen, device=DEVICE)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
+    # rows in the last, a middle, the second and the first slice
+    pos = torch.tensor([S - 1, S // 2 + 3, S // R + 1, 5], device=DEVICE)
+    kw = dict(scale=hd ** -0.5, attn_cap=cfg.attn_softcap,
+              window=None)
+    n = S // R
+    vmax = float(v.abs().max())
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        want = decode_attention(qd, kd, vd, pos, **kw)
+        parts = [decode_partials(qd, kd[:, r * n:(r + 1) * n],
+                                 vd[:, r * n:(r + 1) * n], pos,
+                                 k_offset=r * n, **kw) for r in range(R)]
+        m, l, o = (torch.stack(t) for t in zip(*parts))
+        got = merge_partials(
+            m, l, o, lambda t, op: t.amax(0) if op == "max" else t.sum(0))
+        got = got.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(dt)
+        err = max_abs_err(got.float(), want.float())
+        lim = (S * 2.0 ** -23 if dt == torch.float32 else 2.0 ** -7) * vmax
+        require(err <= lim, f"flash-decode core ({name}): {err:.6e} from "
+                            f"the unsplit decode_attention, bound {lim:.6e}")
+        out[name] = {"max_abs_err": err, "bound": lim}
+    log(f"[dryrun] {card} | flash-decode core at full width (B {B}, H {H}, "
+        f"KV {KV}, hd {hd}, a {S}-slot cache in {R} key slices) vs the "
+        f"unsplit decode_attention: f32 {out['f32']['max_abs_err']:.6e} "
+        f"(bound {out['f32']['bound']:.6e}), bf16 "
+        f"{out['bf16']['max_abs_err']:.6e} (bound "
+        f"{out['bf16']['bound']:.6e})")
+    return out
+
+
 def phase_dryrun(torch, seed: int, card: str) -> dict:
     """The :data:`DRYRUN_CELLS` of ``python -m repro_torch.launch.dryrun``
+    and the :data:`DRYRUN_VARIANTS` of ``experiments/port/hillclimb.py``
     with no error, held by :func:`check_dryrun_cells`; then
-    :func:`card_decode_counts` at full width on the card."""
+    :func:`card_decode_counts` and :func:`card_flash_decode` at full width
+    on the card."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -1751,6 +1953,7 @@ def phase_dryrun(torch, seed: int, card: str) -> dict:
     check_widths(cfg, SERVE_ARCH)
     out = {"cells_wall_s": cells_s, "cells": check_dryrun_cells(cells, art)}
     out["card_decode"] = card_decode_counts(torch, cfg, seed, card)
+    out["flash_decode"] = card_flash_decode(torch, cfg, seed, card)
     return out
 
 

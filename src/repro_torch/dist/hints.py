@@ -150,10 +150,13 @@ def whole_along(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
-def shard_hint(x, name: str):
+def shard_hint(x, name: str, *, whole: tuple[int, ...] = ()):
     """Lay ``x`` out as the policy's spec for ``name`` says (identity
     without a policy, a spec or a mesh, and on a plain tensor).  The spec is
-    trimmed to ``x.ndim``, as the reference trims it."""
+    trimmed to ``x.ndim``, as the reference trims it.  The dims in
+    ``whole`` stay unsplit whatever the spec says of them: a decode step's
+    one query position cannot split over an axis (GSPMD pads it to the
+    axis; a ``DTensor`` would leave ranks with no row)."""
     pol = current_policy()
     if not pol:
         return x
@@ -161,9 +164,56 @@ def shard_hint(x, name: str):
     mesh = pol.get("__mesh__")
     if spec is None or mesh is None or not is_dtensor(x):
         return x
+    from repro_torch.dist.sharding import P, placements_for
+
+    if whole:
+        spec = P(*(None if d in whole else e for d, e in enumerate(spec)))
+    return x.redistribute(mesh, placements_for(mesh, spec, x.ndim))
+
+
+def split_over(x, dim: int) -> list:
+    """The ``(mesh, mesh dim)`` pairs of the mesh dims of size > 1 that
+    split tensor dim ``dim`` of ``x``, outermost first (none for a plain
+    tensor)."""
+    if not is_dtensor(x):
+        return []
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    dim %= x.ndim
+    return [(mesh, i) for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1]
+
+
+def shard_offset(x, dim: int, spec=None) -> int:
+    """Where this rank's shard of ``x`` starts along tensor dim ``dim``, as
+    a global index, with ``x`` laid out as it is or as ``spec`` says (0 for
+    a plain tensor)."""
+    if not is_dtensor(x):
+        return 0
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
     from repro_torch.dist.sharding import placements_for
 
-    return x.redistribute(mesh, placements_for(mesh, spec, x.ndim))
+    mesh = x.device_mesh
+    pl = x.placements if spec is None else placements_for(mesh, spec, x.ndim)
+    _, offset = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+    return int(offset[dim % x.ndim])
+
+
+def reduce_over(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` (a rank's local tensor) all-reduced with ``op`` ("max" or
+    "sum") over each ``(mesh, mesh dim)`` of ``groups`` in turn, by
+    functional collectives (which the dry run's recorder counts); as it is
+    with no groups."""
+    if not groups:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+
+    for mesh, i in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+    return t
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -187,7 +237,11 @@ def local_call(fn, args, in_specs, out_specs):
     pass as they are, and each output comes back as a ``DTensor`` on the
     same mesh laid out as its ``out_specs`` entry says (``out_specs`` a
     spec or ``None`` for a single output, a tuple for several).  The
-    function must not reduce over a sharded dim.
+    function must not reduce over a sharded dim, unless it does the
+    reduction over the mesh dims that split it itself, on its local
+    tensors (:func:`reduce_over`): flash-decode's softmax combine over a
+    cache sharded on its sequence (``models.attention``) is the one caller
+    that does.
 
     Under autograd the local tensors carry gradients both ways
     (``to_local`` / ``from_local``).  An argument's gradient is laid out

@@ -94,6 +94,24 @@ def placements_for(mesh, spec, ndim: int | None = None) -> tuple:
     return tuple(out)
 
 
+def spec_of(x) -> P:
+    """The spec of a ``DTensor``'s placements (one entry a tensor dim: the
+    mesh axis that splits it, a tuple of axes outermost first where several
+    do); ``P()`` for a plain tensor.  The inverse of :func:`placements_for`
+    on ``Shard`` / ``Replicate`` placements."""
+    if not is_dtensor(x):
+        return P()
+    from torch.distributed.tensor import Shard
+
+    names = x.device_mesh.mesh_dim_names
+    axes: list[list[str]] = [[] for _ in range(x.ndim)]
+    for name, p in zip(names, x.placements):
+        if isinstance(p, Shard):
+            axes[p.dim].append(name)
+    return P(*(None if not a else a[0] if len(a) == 1 else tuple(a)
+               for a in axes))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class NamedSharding:
     """A spec bound to a mesh (the reference's ``NamedSharding``)."""

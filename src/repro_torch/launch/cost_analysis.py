@@ -148,7 +148,8 @@ def summarize_step(records, args=(), outputs=None) -> dict:
     """Cost summary of one recorded step, with the keys of the reference's
     ``summarize_compiled`` that ``CostCell.from_dryrun`` and the dry run's
     log read: ``flops_per_device``, ``bytes_accessed_per_device``,
-    ``weighted`` (``dot_flops_per_device``, ``total_wire_bytes_per_device``),
+    ``weighted`` (``dot_flops_per_device``, ``dot_bytes_per_device``,
+    ``total_wire_bytes_per_device``),
     ``collectives`` and ``memory``.
 
     ``memory`` holds the bytes of rank 0's shards of the step's arguments
@@ -170,6 +171,10 @@ def summarize_step(records, args=(), outputs=None) -> dict:
         # eager execution counts every loop trip: nothing to weight
         "weighted": {
             "dot_flops_per_device": flops,
+            # the operands and results of the ops that count FLOPs (the
+            # reference's dots)
+            "dot_bytes_per_device": float(sum(r.bytes for r in records
+                                              if r.flops)),
             "total_wire_bytes_per_device": coll["total_wire_bytes_per_device"],
         },
         "collectives": coll,

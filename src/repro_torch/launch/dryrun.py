@@ -18,7 +18,8 @@ of 256 or 512 ranks, whose collectives return at once and move nothing):
 Meta tensors compute nothing on any device, so a cell runs on any machine,
 card or not; the time it takes is the host's (``trace_s``).  A fake
 world cannot share a process with a real one: run the dry run as a
-process of its own.  Artifacts go to ``experiments/artifacts/dryrun_torch/``.
+process of its own.  Artifacts go to ``experiments/artifacts/dryrun_torch/``,
+a layout variant's to its ``variants/``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b --shape decode_32k --mesh single
@@ -57,12 +58,15 @@ from repro_torch.optim.adamw import init_opt_state
 
 log = get_logger("dryrun")
 
-ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                            "experiments", "artifacts", "dryrun_torch")
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
+                                    ".."))
+ARTIFACT_DIR = os.path.join(ROOT, "experiments", "artifacts", "dryrun_torch")
+# the layout hillclimb, whose CLI runs a cell under one of its variants
+HILLCLIMB = os.path.join(ROOT, "experiments", "port", "hillclimb.py")
 
 __all__ = ["collective_stats", "summarize_step", "dryrun_cell", "trace_cell",
-           "cell_path", "all_cells", "run_all", "run_cells", "run_processes",
-           "table"]
+           "step_layout", "cell_path", "all_cells", "run_all", "run_cells",
+           "run_processes", "table"]
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +103,36 @@ def _densify(spec: P, shape, data_axis: str) -> P:
     return spec
 
 
+def step_layout(cfg, shape, mesh, ax, *, policy_override=None,
+                fsdp: bool = True, fsdp_experts_only: bool = False,
+                cache_seq_shard: bool = False,
+                batch_shard: bool = True) -> tuple[dict, dict]:
+    """The layout a ``shape`` step of ``cfg`` runs under on ``mesh``: the
+    hint policy (``policy_override``, else ``activation_hint_policy``,
+    bound to ``mesh``) and the spec trees ``{"params", "batch",
+    "caches"}``; ``cache_seq_shard`` puts the caches' sequence over the
+    model axis (flash-decode).  Off decode, the policy gathers the
+    sequence before the projections: they flatten (batch, sequence),
+    which DTensor before torch 2.13 cannot do to a tensor sharded on
+    both; GSPMD (and DTensor since, through strided sharding) inserts
+    that gather there itself.  The dry run's cells, the layout tests and
+    ``chip_smoke.py``'s mesh layouts all take their layout from here.
+    The specs follow the leaves' names and ranks, not their head counts,
+    so a padded config's are the same."""
+    policy = dict(policy_override if policy_override is not None else
+                  activation_hint_policy(cfg, ax, shape,
+                                         batch_shard=batch_shard))
+    policy["__mesh__"] = mesh
+    if shape.kind != "decode":
+        policy.setdefault("sublayer_input", P(ax.batch, None, None))
+    specs = {"params": param_pspecs(cfg, ax, fsdp=fsdp,
+                                    fsdp_experts_only=fsdp_experts_only),
+             "batch": batch_pspec(ax, shape, batch_shard=batch_shard),
+             "caches": cache_pspecs(cfg, ax, shape, seq_shard=cache_seq_shard,
+                                    batch_shard=batch_shard)}
+    return policy, specs
+
+
 def trace_cell(cfg, shape, mesh=None, ax=None, *, policy_override=None,
                fsdp: bool = True, fsdp_experts_only: bool = False,
                opt_2d: bool = False, cache_seq_shard: bool = False) -> dict:
@@ -110,22 +144,15 @@ def trace_cell(cfg, shape, mesh=None, ax=None, *, policy_override=None,
     ``mesh`` (and its ``ax``) they are ``DTensor`` s laid out by the port's
     spec trees and the step runs under the hint policy; with ``mesh=None``
     they are plain, as a one-device run of the same step has them.  Where
-    the mesh's model axis does not divide ``cfg``'s heads, the cell runs
-    the padded config (``dist.sharding.padded_config``) and counts its
-    work, as the reference's compiled HLO does; a batch the batch axes do
-    not divide runs replicated over them (``batch_sharded`` False in the
-    summary)."""
+    the mesh's model axis does not divide ``cfg``'s heads and the layout
+    splits them (:func:`_splits_heads`), the cell runs the padded config
+    (``dist.sharding.padded_config``) and counts its work, as the
+    reference's compiled HLO does (``run_heads`` in the summary); a batch
+    the batch axes do not divide runs replicated over them
+    (``batch_sharded`` False).  The layout is :func:`step_layout`'s."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    m = model_axis_size(mesh, ax)
-    step = build_step(cfg, shape, model_axis=m)
-    opt_cfg = opt_config_for(cfg)
-    # a model axis that does not divide the heads pads them, as GSPMD does:
-    # the cell runs (and counts) the padded model
-    cfg = padded_config(cfg, m)
-    ins = input_specs(cfg, shape)
     train = shape.kind == "train"
-    shapes = param_shapes(cfg)
     specs, policy = {}, {}
     ctxs = [] if train else [torch.no_grad()]
     batch_shard = True
@@ -140,24 +167,25 @@ def trace_cell(cfg, shape, mesh=None, ax=None, *, policy_override=None,
                             if a in mesh.mesh_dim_names)
         batch_shard = (shape.global_batch % n_batch == 0
                        and shape.global_batch > 1)
-        specs["params"] = param_pspecs(cfg, ax, fsdp=fsdp,
-                                       fsdp_experts_only=fsdp_experts_only)
-        specs["batch"] = batch_pspec(ax, shape, batch_shard=batch_shard)
-        specs["caches"] = cache_pspecs(cfg, ax, shape,
-                                       seq_shard=cache_seq_shard,
-                                       batch_shard=batch_shard)
-        policy = dict(policy_override if policy_override is not None else
-                      activation_hint_policy(cfg, ax, shape,
-                                             batch_shard=batch_shard))
-        policy["__mesh__"] = mesh
-        if shape.kind != "decode":
-            # The sequence is sharded at layer boundaries; the projections
-            # flatten (batch, sequence), which DTensor before torch 2.13
-            # cannot do to a tensor sharded on both.  The gather that GSPMD
-            # (and DTensor since, through strided sharding) inserts there
-            # goes to the model's sequence-gather site instead.
-            policy.setdefault("sublayer_input", P(ax.batch, None, None))
+        # the flash-decode cache layout is a decode cell's (a prefill cell
+        # fills the default one, as the reference's dry run does)
+        policy, specs = step_layout(
+            cfg, shape, mesh, ax, policy_override=policy_override,
+            fsdp=fsdp, fsdp_experts_only=fsdp_experts_only,
+            cache_seq_shard=cache_seq_shard and shape.kind == "decode",
+            batch_shard=batch_shard)
         ctxs.append(implicit_replication())
+    # a model axis that does not divide the heads pads them where the
+    # layout splits them, as GSPMD pads a dim it splits: the cell runs (and
+    # counts) the padded model
+    m = (model_axis_size(mesh, ax)
+         if _splits_heads(policy, shape.kind,
+                          cache_seq_shard and shape.kind == "decode") else 1)
+    step = build_step(cfg, shape, model_axis=m)
+    opt_cfg = opt_config_for(cfg)
+    cfg = padded_config(cfg, m)
+    ins = input_specs(cfg, shape)
+    shapes = param_shapes(cfg)
     if shape.kind != "decode":
         # One query block sweeping every key chunk, as the reference's dry
         # run sweeps them all (its ``differentiable=True`` static loop): the
@@ -202,7 +230,20 @@ def trace_cell(cfg, shape, mesh=None, ax=None, *, policy_override=None,
         out = step(*args)
         trace_s = time.perf_counter() - t0
     return {**summarize_step(rec.records, args, out),
-            "trace_s": round(trace_s, 2), "batch_sharded": batch_shard}
+            "trace_s": round(trace_s, 2), "batch_sharded": batch_shard,
+            "run_heads": [cfg.num_heads, cfg.num_kv_heads]}
+
+
+def _splits_heads(policy: dict, kind: str, cache_seq_shard: bool) -> bool:
+    """Whether a cell's layout splits a head dim over the model axis: the
+    policy's ``attn_heads`` does, or a cache not split on its sequence
+    (KV heads over ``model``; decode runs its attention in the cache's
+    layout, prefill fills it).  A query-position train step or a
+    flash-decode step splits none: its heads stay whole (the projections'
+    flat ``H·head_dim`` columns still split)."""
+    heads = policy.get("attn_heads") or ()
+    return ((len(heads) > 2 and heads[2] is not None)
+            or (kind != "train" and not cache_seq_shard))
 
 
 FLOP_SLACK = 1.25
@@ -289,7 +330,9 @@ def flop_bounds(cfg, shape, n: int, batch_ranks: int = 1,
 def cell_bounds(cell: dict) -> tuple[float, float]:
     """:func:`flop_bounds` of a dry-run cell's artifact (its arch, shape,
     mesh, heads run and batch layout)."""
-    cfg = padded_config(get_config(cell["arch"]), 16)
+    cfg = get_config(cell["arch"])
+    if list(cell.get("run_heads", ())) != [cfg.num_heads, cfg.num_kv_heads]:
+        cfg = padded_config(cfg, 16)
     batch_ranks = cell["num_devices"] // 16
     return flop_bounds(cfg, SHAPES[cell["shape"]], cell["num_devices"],
                        batch_ranks, cell.get("batch_sharded", True))
@@ -304,7 +347,6 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     shape = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     ax = mesh_axes(multi_pod=multi_pod)
-    run = padded_config(cfg, model_axis_size(mesh, ax))
     summary = trace_cell(cfg, shape, mesh, ax,
                          policy_override=policy_override, fsdp=fsdp,
                          fsdp_experts_only=fsdp_experts_only, opt_2d=opt_2d,
@@ -316,9 +358,8 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         "fsdp": fsdp,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
-        # the head counts the cell ran (padded where the model axis does
-        # not divide them)
-        "run_heads": [run.num_heads, run.num_kv_heads],
+        # the head counts the cell ran (``run_heads``: padded where the
+        # layout splits them over a model axis that does not divide them)
         **summary,
     }
     if verbose:
@@ -333,10 +374,15 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
 
 
 def cell_path(arch: str, shape_name: str, multi_pod: bool, tag: str = "") -> str:
+    """A cell's artifact; a layout variant's (``tag``, written by
+    ``experiments/port/hillclimb.py``) goes to ``variants/`` below it, so
+    that what reads the directory's cells (``CostModelRegistry.load_dir``,
+    keyed (arch, kind, mesh)) reads the base cells only."""
     mesh = "multi" if multi_pod else "single"
-    os.makedirs(ARTIFACT_DIR, exist_ok=True)
+    root = os.path.join(ARTIFACT_DIR, "variants") if tag else ARTIFACT_DIR
+    os.makedirs(root, exist_ok=True)
     suffix = f"_{tag}" if tag else ""
-    return os.path.join(ARTIFACT_DIR, f"{arch}_{shape_name}_{mesh}{suffix}.json")
+    return os.path.join(root, f"{arch}_{shape_name}_{mesh}{suffix}.json")
 
 
 def _run_and_save(arch, shape_name, multi, **kw) -> dict:
@@ -385,30 +431,40 @@ def run_all(archs=None, shapes=None, meshes=("single", "multi"),
 
 def run_cells(cells, jobs: int | None = None, *,
               timeout: float | None = None) -> list[dict]:
-    """Each ``(arch, shape, multi)`` cell by this module's CLI in a process
-    of its own (a fake world needs one), ``jobs`` at a time (the CPU count
-    by default), each killed past ``timeout`` seconds; returns the cells'
-    artifacts in order, each with its process's wall time as ``wall_s``.
-    A process that leaves no artifact gives a cell with an ``error`` (its
-    exit code and the tail of its standard error)."""
+    """Each ``(arch, shape, multi)`` cell by this module's CLI, and each
+    ``(arch, shape, False, variant)`` cell by the layout hillclimb's
+    (:data:`HILLCLIMB`, single-pod only), in a process of its own (a fake
+    world needs one), ``jobs`` at a time (the CPU count by default), each
+    killed past ``timeout`` seconds; returns the cells' artifacts in
+    order, each with its process's wall time as ``wall_s``.  A process
+    that leaves no artifact gives a cell with an ``error`` (its exit code
+    and the tail of its standard error)."""
     import sys
 
-    paths = [cell_path(*c) for c in cells]
+    def cmd(arch, shape_name, multi, variant=None):
+        if variant is None:
+            return [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape_name, "--mesh",
+                    "multi" if multi else "single"]
+        if multi:
+            raise ValueError(f"{variant!r}: the layout hillclimb runs "
+                             f"single-pod cells only")
+        return [sys.executable, HILLCLIMB, arch, shape_name, variant]
+
+    cmds = [cmd(*c) for c in cells]
+    paths = [cell_path(*c[:3], tag=c[3] if len(c) > 3 else "")
+             for c in cells]
     for path in paths:
         if os.path.exists(path):
             os.unlink(path)
-    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape_name, "--mesh",
-             "multi" if multi else "single"]
-            for arch, shape_name, multi in cells]
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
     out = []
-    for (arch, shape_name, multi), path, (rc, _, err, wall) in zip(
+    for c, path, (rc, _, err, wall) in zip(
             cells, paths, run_processes(cmds, jobs, timeout=timeout,
                                         env=env)):
+        arch, shape_name, multi = c[:3]
         if os.path.exists(path):
             with open(path) as f:
                 res = json.load(f)
@@ -417,10 +473,13 @@ def run_cells(cells, jobs: int | None = None, *,
                    "mesh": "2x16x16" if multi else "16x16",
                    "error": f"the cell's process exited {rc} with no "
                             f"artifact: {err[-2000:]}"}
+            if len(c) > 3:
+                res["variant"] = c[3]
         res["wall_s"] = round(wall, 2)
         with open(path, "w") as f:
             json.dump(res, f, indent=1)
-        log.info(f"{arch} × {shape_name} × {res['mesh']}: "
+        tag = f" '{res['variant']}'" if "variant" in res else ""
+        log.info(f"{arch} × {shape_name} × {res['mesh']}{tag}: "
                  f"{'FAILED' if 'error' in res else 'ok'} in "
                  f"{res['wall_s']} s")
         out.append(res)

@@ -32,7 +32,7 @@ from torch import nn
 
 from repro_torch.dist.hints import (current_policy, local_call, shard_hint,
                                     summed)
-from repro_torch.dist.sharding import P
+from repro_torch.dist.sharding import P, spec_of
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of, param
@@ -218,13 +218,13 @@ def mamba_block(
         h0 = cache["ssm"] if cache is not None else None
         y, h = selective_scan(params, u_c, cfg, h0)
     if cache is not None:
-        # in place on each rank's shard of d_inner (the cache's layout)
-        m = inner[2] if len(inner) > 2 else None
-        conv_spec, ssm_spec = P(None, None, m), P(None, m, None)
-        local_call(lambda c, n: c.copy_(n), (cache["conv"], new_conv),
-                   (conv_spec, conv_spec), None)
-        local_call(lambda c, n: c.copy_(n), (cache["ssm"], h),
-                   (ssm_spec, ssm_spec), None)
+        # in place on each rank's shard, in the cache's own layout (d_inner
+        # over model, and the batch as the cache has it): a copy written
+        # in another layout would be a redistributed temporary
+        for name, new in (("conv", new_conv), ("ssm", h)):
+            spec = spec_of(cache[name])
+            local_call(lambda c, n: c.copy_(n), (cache[name], new),
+                       (spec, spec), None)
     out = (y * F.silu(z)) @ params.out_proj
     return out, cache
 

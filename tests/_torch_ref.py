@@ -120,6 +120,10 @@ import torch.multiprocessing as mp
 
 
 def _worker(rank, world, store, out, code_path):
+    # a rank that aborts (SIGABRT, SIGSEGV) prints every thread's Python
+    # stack to stderr, which the test's failure message carries
+    import faulthandler
+    faulthandler.enable(all_threads=True)
     with open(code_path) as f:
         code = f.read()
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
@@ -168,7 +172,8 @@ def run_ranks(code: str, world: int, tmp: Path, timeout: int = 300
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         raise AssertionError(f"ranks did not finish in {timeout} s")
-    assert proc.returncode == 0, err[-4000:]
+    # room for an aborted rank's thread stacks before spawn's own report
+    assert proc.returncode == 0, err[-12000:]
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 

@@ -169,6 +169,7 @@ def test_summarize_step_has_the_keys_the_cost_model_reads():
     assert s["flops_per_device"] == 2 * 4 * 8 * 2
     assert s["bytes_accessed_per_device"] == (32 + 16 + 8) * 4
     assert s["weighted"]["dot_flops_per_device"] == s["flops_per_device"]
+    assert s["weighted"]["dot_bytes_per_device"] == (32 + 16 + 8) * 4
     assert s["weighted"]["total_wire_bytes_per_device"] == 0.0
     assert s["memory"]["argument_size_in_bytes"] == 48 * 4
     assert s["memory"]["output_size_in_bytes"] == 8 * 4

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
-neither JAX nor anything of the JAX package ``repro``.
+"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py`` and the
+twins under ``experiments/port/``) import neither JAX nor anything of the
+JAX package ``repro``.
 
 Two checks: a fresh interpreter imports every ``repro_torch`` module and
 finds no ``jax``/``repro`` module loaded, and an AST scan finds no import of
@@ -87,7 +88,9 @@ def _imported_roots(path: Path):
 
 
 def test_no_port_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    twins = sorted((REPO / "experiments" / "port").glob("*.py"))
+    assert REPO / "experiments" / "port" / "hillclimb.py" in twins
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + twins
     offenders = [f"{p.relative_to(REPO)}:{line} imports {root}"
                  for p in files for line, root in _imported_roots(p)
                  if root in FORBIDDEN]
