@@ -45,7 +45,9 @@ def accumulate_counters(counters, assignment, new_avail, valid, p_valid):
         new_avail = new_avail[None]
         valid = valid[None]
     row_valid = valid.any(dim=1)
-    inf = torch.tensor(float("inf"), device=new_avail.device)
+    # made on the device: a host tensor's copy would wait for the stream
+    # (the fused tick's whole decode step) before the decision's launch
+    inf = torch.full((), float("inf"), device=new_avail.device)
     mx = torch.where(p_valid[None, :], new_avail, -inf).amax(dim=1)
     mn = torch.where(p_valid[None, :], new_avail, inf).amin(dim=1)
     spread = torch.where(row_valid, mx - mn, 0.0).sum()

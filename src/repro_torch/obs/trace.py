@@ -22,6 +22,13 @@ Design constraints, in order:
   ``time.perf_counter`` relative to the tracer's epoch; simulators pass
   explicit ``ts_us`` values so simulated timelines export on their own
   axis (the discrete-event serving simulator's queue-depth counters).
+* **The device trace's clock.**  While a ``torch.profiler`` is recording,
+  a :meth:`Tracer.span` also opens a ``record_function`` range of its name,
+  so the program's phases appear among the profiler's host ranges beside
+  the kernels they launched.  Whether one is recording is read from
+  ``torch.autograd.profiler._is_profiler_enabled`` once a span, a module
+  global; with no profiler recording a span opens no range.  Records made
+  after the fact (:meth:`Tracer.complete`) are not mirrored.
 
 Timestamps are microseconds (the Chrome trace-event unit).
 """
@@ -31,6 +38,8 @@ from __future__ import annotations
 import io
 import json
 import time
+
+import torch.autograd.profiler as _profiler
 
 _PH_KNOWN = frozenset({"X", "i", "I", "C", "B", "E", "M"})
 
@@ -78,9 +87,10 @@ NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """Live span: records one complete ("X") event on exit."""
+    """Live span: records one complete ("X") event on exit, and mirrors
+    itself as a profiler range while a ``torch.profiler`` records."""
 
-    __slots__ = ("_tracer", "_name", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_args", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict | None):
         self._tracer = tracer
@@ -88,6 +98,10 @@ class _Span:
         self._args = args
 
     def __enter__(self):
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self._name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -96,7 +110,13 @@ class _Span:
         tr = self._tracer
         tr._append(TraceEvent(self._name, "X", (self._t0 - tr._epoch) * 1e6,
                               (t1 - self._t0) * 1e6, self._args))
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
+
+    def set(self, **args) -> None:
+        """Add arguments known only once the span's work is done."""
+        self._args = {**(self._args or {}), **args}
 
 
 class Tracer:

@@ -73,6 +73,8 @@ from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import (cache_specs, decode_step, init_cache,
                                       param_specs, prefill_step)
 from repro_torch.obs.metrics import Stopwatch
+from repro_torch.obs.trace import NULL_SPAN
+from repro_torch.serve.paging import phase_span
 
 
 def _host_scale_s(prompt_tokens, new_tokens):
@@ -428,20 +430,27 @@ class ServeEngine:
         """Prefill + join the running batch; the slot id, or ``None`` when
         the pool lacks a slot or pages (callers queue, never drop)."""
         rt = self._require_paged()
-        with _span(self.tracer, "engine.admit",
-                   S0=int(np.asarray(prompt).size), new_tokens=new_tokens):
+        tr = self.tracer
+        if tr is None:
+            return rt.admit(prompt, new_tokens)
+        with tr.span("engine.admit", S0=int(np.asarray(prompt).size),
+                     new_tokens=new_tokens):
             return rt.admit(prompt, new_tokens)
 
     def decode_tick(self, sched=None):
         """One decode step for every in-flight slot → {slot: new token}.
 
         ``sched`` (optional): ``(avg, exec_times, fabric)`` for a
-        fused-backend ``MappingFabric``; the tick also makes that mapping
-        decision and returns ``(tokens, decision)`` (see
-        ``PagedRuntime.decode_tick``)."""
+        fused-backend ``MappingFabric``, or ``(avg, exec_times, fabric,
+        event)`` with the mapping event's number for the decision's spans;
+        the tick also makes that mapping decision and returns ``(tokens,
+        decision)`` (see ``PagedRuntime.decode_tick``)."""
         rt = self._require_paged()
-        with _span(self.tracer, "engine.decode_tick",
-                   active=len(rt.active_slots()), fused=sched is not None):
+        tr = self.tracer
+        if tr is None:
+            return rt.decode_tick(sched)
+        with tr.span("engine.decode_tick", active=len(rt.active_slots()),
+                     fused=sched is not None):
             return rt.decode_tick(sched)
 
     def finished_slots(self) -> list[int]:
@@ -450,7 +459,12 @@ class ServeEngine:
 
     def retire(self, slot: int) -> np.ndarray:
         """Free a finished slot's pages; returns its (S0+new_tokens,) ids."""
-        return self._require_paged().retire(slot)
+        rt = self._require_paged()
+        tr = self.tracer
+        if tr is None:
+            return rt.retire(slot)
+        with tr.span("engine.retire", slot=slot):
+            return rt.retire(slot)
 
     def free_pages(self) -> int:
         """Pages currently available for admission."""
@@ -660,6 +674,14 @@ class HeftFrontEnd:
             self.tracer.counter("frontend.queue_depth", depth=n)
         return [(int(order[i]), int(assignment[i])) for i in range(n)]
 
+    def _loop_tracer(self):
+        """The tracer ``run_continuous`` records on: the front end's own,
+        else the one every replica's engine holds (None when they differ)."""
+        if self.tracer is not None:
+            return self.tracer
+        held = {id(r.engine.tracer): r.engine.tracer for r in self.replicas}
+        return next(iter(held.values())) if len(held) == 1 else None
+
     def run_batch(self, requests: list[tuple[np.ndarray, int]]):
         """Schedule + execute, returning (outputs, per-replica counts)."""
         plan = self.schedule(requests)
@@ -707,6 +729,19 @@ class HeftFrontEnd:
         (cold start, idle fleet) it takes the host path (``map_event``)
         against the same registers.
 
+        Traced (on the front end's tracer, else on the one every replica's
+        engine holds), each iteration is a ``frontend.iteration`` span
+        (``it``, and its ``arrived`` / ``mapped`` / ``admitted`` /
+        ``refused`` / ``retired`` counts, the ``backlog`` arrived and not
+        admitted at its end, the ``active`` lanes decoded) with a
+        ``frontend.backlog`` counter; each admitted request a
+        ``request.queue`` record from the start of its arrival iteration to
+        the start of the ``admit`` that took it; each mapping event
+        ``map.*`` spans sharing its ``event`` number (``map.stage``,
+        ``map.event`` on the host path, ``map.adopt``; in a carrier's tick
+        ``map.inputs`` / ``map.launch`` / ``map.commit``).  Untraced, none
+        of this is built.
+
         Returns ``(outputs, stats)``: outputs in request order; stats with
         ``ticks``, per-replica ``processed``, the pools' cumulative
         ``allocated`` / ``freed`` page counts and ``slots_allocated`` /
@@ -747,71 +782,111 @@ class HeftFrontEnd:
         pending: list[int] = []     # fused path: arrived, not yet mapped
         tick = 0
         next_arrival = 0
+        tr = self._loop_tracer()
+        event = 0                   # fused path: mapping events so far
         while len(outputs) < len(requests):
             tick_start = time.perf_counter()
-            # 1. HEFT_RT-map the newly arrived requests (sticky decisions).
-            batch = []
-            while (next_arrival < len(order)
-                   and arrivals[order[next_arrival]] <= tick):
-                batch.append(order[next_arrival])
-                arrived_at[order[next_arrival]] = tick_start
-                next_arrival += 1
-            carrier = None
-            if not fused:
-                if batch:
-                    plan = self.schedule([requests[i] for i in batch])
-                    for req_i, rep_i in plan:
-                        queues[rep_i].append(batch[req_i])
-            else:
-                pending.extend(batch)
-                if pending:
-                    # The decision rides the first replica that will run a
-                    # decode tick this round; with nothing in flight there
-                    # is no tick to ride — take the host path now (against
-                    # the same resident registers) so this tick admits.
-                    carrier = next(
-                        (i for i, r in enumerate(self.replicas)
-                         if r.engine.paged is not None
-                         and r.engine.paged.active_slots()), None)
-                    if carrier is None:
-                        avg, ex = self._stage_event(
-                            [requests[i] for i in pending])
-                        decision = self.fabric.map_event(avg, ex)
-                        plan = self._adopt_decision(len(pending), decision)
-                        host_decisions += len(pending)
+            with (NULL_SPAN if tr is None else
+                  tr.span("frontend.iteration", it=tick)) as it_span:
+                if tr is not None:
+                    taken0, retired0 = len(slot_of) + len(outputs), len(outputs)
+                mapped = decoded = 0
+                # 1. HEFT_RT-map the newly arrived requests (sticky
+                # decisions).
+                batch = []
+                while (next_arrival < len(order)
+                       and arrivals[order[next_arrival]] <= tick):
+                    batch.append(order[next_arrival])
+                    arrived_at[order[next_arrival]] = tick_start
+                    next_arrival += 1
+                carrier = None
+                if not fused:
+                    if batch:
+                        plan = self.schedule([requests[i] for i in batch])
+                        mapped = len(plan)
                         for req_i, rep_i in plan:
-                            queues[rep_i].append(pending[req_i])
-                        pending = []
-            # 2. Admission tick: drain each mapped queue into free slots.
-            for rep_i, r in enumerate(self.replicas):
-                while queues[rep_i]:
-                    idx = queues[rep_i][0]
-                    prompt, nt = requests[idx]
-                    slot = r.engine.admit(prompt, nt)
-                    if slot is None:       # exhausted: stays queued (FIFO)
-                        break
-                    queues[rep_i].pop(0)
-                    slot_of[(rep_i, slot)] = idx
-            # 3. Decode tick + retire finished slots.  On the fused path the
-            # carrier's tick also maps the pending arrivals; they reach
-            # their queues for the NEXT admission tick.
-            for rep_i, r in enumerate(self.replicas):
-                if fused and pending and rep_i == carrier:
-                    avg, ex = self._stage_event(
-                        [requests[i] for i in pending])
-                    _, decision = r.engine.decode_tick((avg, ex, self.fabric))
-                    plan = self._adopt_decision(len(pending), decision)
-                    fused_decisions += len(pending)
-                    for req_i, rep_to in plan:
-                        queues[rep_to].append(pending[req_i])
-                    pending = []
+                            queues[rep_i].append(batch[req_i])
                 else:
-                    r.engine.decode_tick()
-                for slot in r.engine.finished_slots():
-                    idx = slot_of.pop((rep_i, slot))
-                    outputs[idx] = r.engine.retire(slot)
-                    latency[idx] = time.perf_counter() - arrived_at[idx]
-                    r.processed += 1
+                    pending.extend(batch)
+                    if pending:
+                        # The decision rides the first replica that will run
+                        # a decode tick this round; with nothing in flight
+                        # there is no tick to ride — take the host path now
+                        # (against the same resident registers) so this tick
+                        # admits.
+                        carrier = next(
+                            (i for i, r in enumerate(self.replicas)
+                             if r.engine.paged is not None
+                             and r.engine.paged.active_slots()), None)
+                        if carrier is None:
+                            with phase_span(tr, "map.stage", event,
+                                            len(pending)):
+                                avg, ex = self._stage_event(
+                                    [requests[i] for i in pending])
+                            with phase_span(tr, "map.event", event):
+                                decision = self.fabric.map_event(avg, ex)
+                            with phase_span(tr, "map.adopt", event):
+                                plan = self._adopt_decision(len(pending),
+                                                            decision)
+                            event += 1
+                            mapped = len(pending)
+                            host_decisions += len(pending)
+                            for req_i, rep_i in plan:
+                                queues[rep_i].append(pending[req_i])
+                            pending = []
+                # 2. Admission tick: drain each mapped queue into free slots.
+                for rep_i, r in enumerate(self.replicas):
+                    while queues[rep_i]:
+                        idx = queues[rep_i][0]
+                        prompt, nt = requests[idx]
+                        t_admit = time.perf_counter() if tr is not None else 0
+                        slot = r.engine.admit(prompt, nt)
+                        if slot is None:   # exhausted: stays queued (FIFO)
+                            break
+                        queues[rep_i].pop(0)
+                        slot_of[(rep_i, slot)] = idx
+                        if tr is not None:
+                            tr.complete("request.queue", arrived_at[idx],
+                                        t_admit - arrived_at[idx], req=idx,
+                                        replica=rep_i, it=tick)
+                if tr is not None:
+                    # each queue left non-empty ended on a refused admit
+                    refused = sum(1 for q in queues if q)
+                # 3. Decode tick + retire finished slots.  On the fused path
+                # the carrier's tick also maps the pending arrivals; they
+                # reach their queues for the NEXT admission tick.
+                for rep_i, r in enumerate(self.replicas):
+                    if fused and pending and rep_i == carrier:
+                        with phase_span(tr, "map.stage", event, len(pending)):
+                            avg, ex = self._stage_event(
+                                [requests[i] for i in pending])
+                        toks, decision = r.engine.decode_tick(
+                            (avg, ex, self.fabric, event))
+                        with phase_span(tr, "map.adopt", event):
+                            plan = self._adopt_decision(len(pending),
+                                                        decision)
+                        event += 1
+                        mapped = len(pending)
+                        fused_decisions += len(pending)
+                        for req_i, rep_to in plan:
+                            queues[rep_to].append(pending[req_i])
+                        pending = []
+                    else:
+                        toks = r.engine.decode_tick()
+                    decoded += len(toks)
+                    for slot in r.engine.finished_slots():
+                        idx = slot_of.pop((rep_i, slot))
+                        outputs[idx] = r.engine.retire(slot)
+                        latency[idx] = time.perf_counter() - arrived_at[idx]
+                        r.processed += 1
+                if tr is not None:
+                    taken = len(slot_of) + len(outputs)
+                    backlog = next_arrival - taken
+                    it_span.set(arrived=len(batch), mapped=mapped,
+                                admitted=taken - taken0, refused=refused,
+                                retired=len(outputs) - retired0,
+                                backlog=backlog, active=decoded)
+                    tr.counter("frontend.backlog", backlog=backlog)
             tick += 1
         stats = {
             "ticks": tick,

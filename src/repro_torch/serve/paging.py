@@ -63,6 +63,19 @@ With MoE layers, row invariance holds while no token can be dropped: at 4
 lanes or fewer (``models/moe.py``).  Above that a lane's tokens can depend
 on its batch-mates' routing, in this runtime as in the reference's.
 
+**Spans.**  With a tracer on the engine, a tick's host time is split into
+``tick.upload`` (the lanes' inputs), ``tick.gather``, ``tick.step``,
+``tick.scatter`` (with the argmax), ``tick.wait`` (the one D2H copy: the
+host blocks there until the device has finished the tick) and
+``tick.tokens`` (the host bookkeeping after it); a fused tick adds its
+decision's ``map.inputs`` (staging and upload), ``map.launch`` (kernel,
+counters, pack) and ``map.commit``.  An admission is ``admit.prefill``
+(with the first token's argmax), ``admit.write`` and ``admit.wait`` (the
+first token's D2H).  These are host spans: issue against wait, not device
+time.  A copy from pageable host memory waits for the stream, so
+``admit.write``, whose page-table row is copied after the prefill is
+queued, also holds the host's wait for the prefill on the device.
+
 Pages are also the migration and recovery unit: :meth:`PagedRuntime
 .snapshot_slot` captures one request's pages, state rows and decode state
 as numpy, and :meth:`PagedRuntime.restore_slot` re-admits it on any engine
@@ -104,6 +117,22 @@ from repro_torch.kernels import decision_hw, pack_tick_outputs
 from repro_torch.kernels.fused_decision import unpack_decision
 from repro_torch.models.model import cache_specs
 from repro_torch.obs.device import accumulate_counters
+from repro_torch.obs.trace import NULL_SPAN
+
+
+def phase_span(tracer, name: str, event: int | None = None,
+               n: int | None = None):
+    """``tracer``'s span ``name``, carrying the mapping event's number
+    ``event`` and its request count ``n`` where given; the shared no-op span
+    when no tracer is attached (no span object, no argument dict)."""
+    if tracer is None:
+        return NULL_SPAN
+    if event is None:
+        return tracer.span(name)
+    if n is None:
+        return tracer.span(name, event=event)
+    return tracer.span(name, event=event, n=n)
+
 
 def _take_shape(pool, name: str, row) -> tuple:
     """Shape (without the layer axis) of one slot's pages or state row."""
@@ -290,33 +319,37 @@ class PagedRuntime:
         if not self.pool.can_admit(total):
             return None
         eng = self.engine
+        tr = eng.tracer
         first = None
         if not eng._member:
             slot, pages = self.pool.reserve(total)
         else:
             with eng._ctx():
-                logits, dense = eng._prefill(
-                    torch.from_numpy(prompt[None]).to(eng.device))
-                slot, pages = self.pool.reserve(total)
-                pp, ps = self.pool.pages_per_slot, self.pool.page_size
-                row = torch.from_numpy(self.pool.table[slot]).to(
-                    eng.device).long()
+                with phase_span(tr, "admit.prefill"):
+                    logits, dense = eng._prefill(
+                        torch.from_numpy(prompt[None]).to(eng.device))
+                    first = gathered(logits)[0].argmax().reshape(1).to(
+                        torch.int32)
+                with phase_span(tr, "admit.write"):
+                    slot, pages = self.pool.reserve(total)
+                    pp, ps = self.pool.pages_per_slot, self.pool.page_size
+                    row = torch.from_numpy(self.pool.table[slot]).to(
+                        eng.device).long()
 
-                def write(pool, d, name):
-                    d = d[:, 0]                       # (L, ...)
-                    if name in STATE_LEAVES:
-                        pool[:, slot] = d
-                    else:
-                        pool[:, row] = d.reshape(d.shape[0], pp, ps,
-                                                 *d.shape[2:])
+                    def write(pool, d, name):
+                        d = d[:, 0]                       # (L, ...)
+                        if name in STATE_LEAVES:
+                            pool[:, slot] = d
+                        else:
+                            pool[:, row] = d.reshape(d.shape[0], pp, ps,
+                                                     *d.shape[2:])
 
-                for name, pool in self.pool.pools.items():
-                    spec = self._specs[name]
-                    local_call(lambda p, d: write(p, d, name),
-                               (pool, dense[name]), (spec, spec), None)
-                first = gathered(logits)[0].argmax().reshape(1).to(
-                    torch.int32)
-        first = int(eng._publish(first, (1,), torch.int32)[0])
+                    for name, pool in self.pool.pools.items():
+                        spec = self._specs[name]
+                        local_call(lambda p, d: write(p, d, name),
+                                   (pool, dense[name]), (spec, spec), None)
+        with phase_span(tr, "admit.wait"):
+            first = int(eng._publish(first, (1,), torch.int32)[0])
         self.slots[slot] = _Slot(prompt=prompt, new_tokens=int(new_tokens),
                                  pages=pages, tokens=[first])
         return slot
@@ -360,65 +393,77 @@ class PagedRuntime:
         decision (the ``fused_decision`` kernel, on the same stream, after
         the decode step) and returns ``(tokens, decision)``, ``decision``
         the fabric's ``map_event`` 5-tuple.  Its outputs share the tokens'
-        one device-to-host copy.
+        one device-to-host copy.  A fourth element, the event's number,
+        goes on the decision's ``map.*`` spans.
         """
         active = self.active_slots()
         if not active:
             return {} if sched is None else ({}, None)
         eng = self.engine
+        tr = eng.tracer
         lanes = eng.lanes
-        pp, ps = self.pool.pages_per_slot, self.pool.page_size
         if sched is not None:
-            avg, exec_times, fab = sched
-            (a_p, ex_p, _, avail, mask,
-             counters, p_valid) = fab.tick_decision_inputs(avg, exec_times)
+            avg, exec_times, fab = sched[:3]
+            event = sched[3] if len(sched) > 3 else None
+            with phase_span(tr, "map.inputs", event):
+                (a_p, ex_p, _, avail, mask,
+                 counters, p_valid) = fab.tick_decision_inputs(avg,
+                                                               exec_times)
         buf = None
         if eng._member:
             with eng._ctx():
                 # Uploads first: a copy from pageable host memory waits for
                 # the stream, so it must not queue behind the decode step.
-                ints = self._lane_inputs(active)
+                with phase_span(tr, "tick.upload"):
+                    ints = self._lane_inputs(active)
                 if sched is not None:
-                    a_d, ex_d = self._upload_event(a_p, ex_p)
+                    with phase_span(tr, "map.inputs", event):
+                        a_d, ex_d = self._upload_event(a_p, ex_p)
                 toks = self._tick(ints)
                 if sched is None:
                     buf = toks
                 else:
-                    res = decision_hw(a_d, ex_d, avail, mask, out_avail=avail)
-                    if counters is not None:
-                        valid = (torch.arange(len(a_p), device=eng.device)
-                                 < len(avg))
-                        accumulate_counters(counters, res.assignment,
-                                            res.new_avail, valid, p_valid)
-                    # The tick's one device→host copy: tokens and decision.
-                    buf = pack_tick_outputs(toks, res)
+                    with phase_span(tr, "map.launch", event):
+                        res = decision_hw(a_d, ex_d, avail, mask,
+                                          out_avail=avail)
+                        if counters is not None:
+                            valid = (torch.arange(len(a_p), device=eng.device)
+                                     < len(avg))
+                            accumulate_counters(counters, res.assignment,
+                                                res.new_avail, valid, p_valid)
+                        # The tick's one device→host copy: tokens and
+                        # decision.
+                        buf = pack_tick_outputs(toks, res)
         width = lanes + (0 if sched is None else 4 * len(a_p) + len(avail))
-        host = eng._publish(buf, (width,), torch.int32).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the tick's one packed D2H
+        with phase_span(tr, "tick.wait"):
+            host = eng._publish(buf, (width,), torch.int32).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the tick's one packed D2H
         nxt = host[:lanes]
         decision = None
         if sched is not None:
-            if not eng._member:
-                # adopt the slice's decision: its new registers ride in the
-                # buffer, bit for bit
-                _, assignment, _, _, new = unpack_decision(host[lanes:],
-                                                           len(avail))
-                avail.copy_(torch.from_numpy(new).to(avail.device))
-                if counters is not None:
-                    valid = torch.arange(len(a_p), device=avail.device) \
-                        < len(avg)
-                    accumulate_counters(
-                        counters, torch.from_numpy(assignment).to(
-                            avail.device), avail, valid, p_valid)
-                res_avail = avail
-            else:
-                res_avail = res.new_avail
-            decision = fab.commit_tick_decision(len(avg), host[lanes:],
-                                                res_avail, counters)
-        out = {}
-        for i, s in enumerate(active):
-            t = int(nxt[i])
-            self.slots[s].tokens.append(t)
-            out[s] = t
+            with phase_span(tr, "map.commit", event):
+                if not eng._member:
+                    # adopt the slice's decision: its new registers ride in
+                    # the buffer, bit for bit
+                    _, assignment, _, _, new = unpack_decision(host[lanes:],
+                                                               len(avail))
+                    avail.copy_(torch.from_numpy(new).to(avail.device))
+                    if counters is not None:
+                        valid = torch.arange(len(a_p), device=avail.device) \
+                            < len(avg)
+                        accumulate_counters(
+                            counters, torch.from_numpy(assignment).to(
+                                avail.device), avail, valid, p_valid)
+                    res_avail = avail
+                else:
+                    res_avail = res.new_avail
+                decision = fab.commit_tick_decision(len(avg), host[lanes:],
+                                                    res_avail, counters)
+        with phase_span(tr, "tick.tokens"):
+            out = {}
+            for i, s in enumerate(active):
+                t = int(nxt[i])
+                self.slots[s].tokens.append(t)
+                out[s] = t
         return out if sched is None else (out, decision)
 
     def _tick(self, ints: torch.Tensor) -> torch.Tensor:
@@ -426,6 +471,7 @@ class PagedRuntime:
         pages → dense view → ``decode_step`` with per-lane positions →
         scatter the written token and state rows → the (lanes,) argmax."""
         eng = self.engine
+        tr = eng.tracer
         lanes = eng.lanes
         pp, ps = self.pool.pages_per_slot, self.pool.page_size
         table = ints[:lanes * pp].view(lanes, pp).long()
@@ -439,26 +485,29 @@ class PagedRuntime:
             return pool[:, table].reshape(pool.shape[0], lanes, pp * ps,
                                           *pool.shape[3:])
 
-        dense = {name: local_call(lambda p: gather(p, name), (pool,),
-                                  (self._specs[name],), self._specs[name])
-                 for name, pool in self.pool.pools.items()}
-        logits, dense = eng._decode(dense, tok, pos)
-        rows = torch.arange(lanes, device=eng.device)
-        page = table[rows, (pos // ps).long()]
-        off = (pos % ps).long()
+        with phase_span(tr, "tick.gather"):
+            dense = {name: local_call(lambda p: gather(p, name), (pool,),
+                                      (self._specs[name],), self._specs[name])
+                     for name, pool in self.pool.pools.items()}
+        with phase_span(tr, "tick.step"):
+            logits, dense = eng._decode(dense, tok, pos)
+        with phase_span(tr, "tick.scatter"):
+            rows = torch.arange(lanes, device=eng.device)
+            page = table[rows, (pos // ps).long()]
+            off = (pos % ps).long()
 
-        def scatter(pool, d, name):
-            if name in STATE_LEAVES:
-                # scratch lanes all write the scratch slot: harmless
-                pool[:, slot_ids] = d
-            else:
-                pool[:, page, off] = d[:, rows, pos.long()]
+            def scatter(pool, d, name):
+                if name in STATE_LEAVES:
+                    # scratch lanes all write the scratch slot: harmless
+                    pool[:, slot_ids] = d
+                else:
+                    pool[:, page, off] = d[:, rows, pos.long()]
 
-        for name, pool in self.pool.pools.items():
-            spec = self._specs[name]
-            local_call(lambda p, d: scatter(p, d, name), (pool, dense[name]),
-                       (spec, spec), None)
-        return gathered(logits).argmax(dim=-1).to(torch.int32)
+            for name, pool in self.pool.pools.items():
+                spec = self._specs[name]
+                local_call(lambda p, d: scatter(p, d, name),
+                           (pool, dense[name]), (spec, spec), None)
+            return gathered(logits).argmax(dim=-1).to(torch.int32)
 
     def retire(self, slot: int) -> np.ndarray:
         """Free the slot's pages and return the full (S0+new_tokens,) ids."""
