@@ -168,7 +168,10 @@ def _embed_tokens(params: Transformer, tokens, cfg: ModelConfig):
     x = (_vocab_parallel_embedding(tokens, w) if is_dtensor(w)
          else F.embedding(tokens, w))
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # made on the device (not copied from the host): a graphed decode
+        # tick captures this step
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
     return x.to(dtype_of(cfg.compute_dtype))
 
 

@@ -63,13 +63,31 @@ With MoE layers, row invariance holds while no token can be dropped: at 4
 lanes or fewer (``models/moe.py``).  Above that a lane's tokens can depend
 on its batch-mates' routing, in this runtime as in the reference's.
 
+**The graphed tick.**  A meshless engine on the card replays its tick's
+device work (gather, ``decode_step``, scatter, argmax) as one CUDA graph
+instead of issuing it op by op; the runtime chooses this from what it can
+observe (``engine.mesh is None`` and a ``cuda`` device).  Elsewhere (the
+CPU, a mesh slice, where ``DTensor`` dispatch and collectives sit inside
+the step) the same body runs eagerly.  The graph runs the same kernels on
+the same shapes, so its tokens are the eager tick's, bit for bit.  It is
+captured on the runtime's first tick (:class:`_TickGraph`) over fixed
+buffers: the lanes' inputs, uploaded from a pinned staging buffer, and the
+tokens.  It holds the pools and the parameters by address, so
+:meth:`PagedRuntime.rebind` (``ServeEngine.reshard``) drops it and a tick
+whose pools moved captures again.  The in-tick decision stays eager, on the
+same stream after the replay.  ``PagedRuntime.tick_graph`` counts the
+``captures``, ``replays`` and ``eager`` ticks.
+
 **Spans.**  With a tracer on the engine, a tick's host time is split into
 ``tick.upload`` (the lanes' inputs), ``tick.gather``, ``tick.step``,
 ``tick.scatter`` (with the argmax), ``tick.wait`` (the one D2H copy: the
 host blocks there until the device has finished the tick) and
-``tick.tokens`` (the host bookkeeping after it); a fused tick adds its
-decision's ``map.inputs`` (staging and upload), ``map.launch`` (kernel,
-counters, pack) and ``map.commit``.  An admission is ``admit.prefill``
+``tick.tokens`` (the host bookkeeping after it); a graphed tick has one
+``tick.replay`` in place of gather, step and scatter (and ``tick.capture``
+on its first tick), and every tick a ``tick.graph`` counter of the
+runtime's ``tick_graph`` counts.  A fused tick adds its decision's
+``map.inputs`` (staging and upload), ``map.launch`` (kernel, counters,
+pack) and ``map.commit``.  An admission is ``admit.prefill``
 (with the first token's argmax), ``admit.write`` and ``admit.wait`` (the
 first token's D2H).  These are host spans: issue against wait, not device
 time.  A copy from pageable host memory waits for the stream, so
@@ -102,6 +120,7 @@ registers, so every rank's fabric adopts the same decision.
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import deque
 from dataclasses import dataclass, field
@@ -144,6 +163,43 @@ def _take_shape(pool, name: str, row) -> tuple:
 # Leaf classification by name, as the reference's.
 PAGED_LEAVES = frozenset({"k", "v", "ckv", "kr"})
 STATE_LEAVES = frozenset({"conv", "ssm"})
+
+# Eager runs of a tick before its capture (lazy initialisation, such as a
+# stream's cuBLAS workspace, must not happen inside a capture).
+GRAPH_WARMUP = 3
+
+# One graph memory pool a device, shared by every runtime's tick graph.
+# Sharing it is sound because the replicas tick strictly in turn and each
+# tick ends in its device-to-host copy before the next begins: a replay may
+# overwrite another graph's freed temporaries, or the tokens of a tick that
+# has already been read, and nothing else.  Without it each replica would
+# keep its own gathered view (8.05 GB at deepseek-7b's width, 8 lanes of
+# 2048 slots).
+@functools.cache
+def _graph_pool(device: torch.device):
+    return torch.cuda.graph_pool_handle()
+
+
+class _TickGraph:
+    """The fixed buffers of a runtime's graphed tick, and its CUDA graph.
+
+    ``ints`` is the device copy of the lanes' int32 inputs, filled each tick
+    from the pinned ``staging`` buffer (``host`` is its numpy view) without
+    a wait: every tick ends in its device-to-host copy, so the staging
+    buffer is free again by the next.  ``toks``, the (lanes,) int32 tokens,
+    is None until the capture and stays allocated between replays.
+    ``ptrs`` are the pools' addresses the graph was captured on.  Off the
+    card ``graph`` stays None and each tick calls the captured body on the
+    fixed buffers directly."""
+
+    def __init__(self, n: int, device: torch.device, ptrs: tuple):
+        self.staging = torch.zeros(n, dtype=torch.int32,
+                                   pin_memory=device.type == "cuda")
+        self.host = self.staging.numpy()
+        self.ints = torch.zeros(n, dtype=torch.int32, device=device)
+        self.ptrs = ptrs
+        self.graph = None
+        self.toks = None
 
 
 @dataclass
@@ -279,12 +335,16 @@ class PagedRuntime:
         self.pool = PagePool(engine.cfg, max_batch, page_size, engine.max_len,
                              num_pages=num_pages, device=engine.device)
         self.slots: dict[int, _Slot] = {}
+        self.tick_graph = {"captures": 0, "replays": 0, "eager": 0}
         self._bind()
 
     def _bind(self) -> None:
         """Place the pools for the engine's current mesh slice (``page_pspecs``
-        layouts); unmeshed they stay plain tensors on its device."""
+        layouts); unmeshed they stay plain tensors on its device.  Drops the
+        tick graph, and decides afresh whether ticks are graphed."""
         eng = self.engine
+        self._graphed = eng.mesh is None and eng.device.type == "cuda"
+        self._graph = None
         if eng.mesh is None:
             self._specs = dict.fromkeys(self.pool.pools)
             return
@@ -365,17 +425,84 @@ class PagedRuntime:
     def _lane_inputs(self, active: list[int]) -> torch.Tensor:
         """One host→device copy of the tick's int32 inputs: the lanes' page
         table rows, positions, current tokens and slot ids (scratch lanes:
-        the scratch row, position 0, token 0, the scratch slot)."""
+        the scratch row, position 0, token 0, the scratch slot).  A graphed
+        tick fills its fixed buffer, from pinned memory without a wait."""
         lanes, pp = self.engine.lanes, self.pool.pages_per_slot
+        g = self._graph_buffers() if self._graphed else None
+        host = (np.empty(lanes * (pp + 3), dtype=np.int32) if g is None
+                else g.host)
         slot_ids = active + [self.pool.scratch_slot] * (lanes - len(active))
-        host = np.zeros(lanes * (pp + 3), dtype=np.int32)
         host[:lanes * pp] = self.pool.table[slot_ids].reshape(-1)
+        host[lanes * pp:lanes * (pp + 2)] = 0
         for i, s in enumerate(active):
             rec = self.slots[s]
             host[lanes * pp + i] = rec.write_pos
             host[lanes * (pp + 1) + i] = rec.tokens[-1]
         host[lanes * (pp + 2):] = slot_ids
+        if g is None:
+            return torch.from_numpy(host).to(self.engine.device)
+        g.ints.copy_(g.staging, non_blocking=True)
+        return g.ints
+
+    def _pool_ptrs(self) -> tuple:
+        return tuple(p.data_ptr() for p in self.pool.pools.values())
+
+    def _graph_buffers(self) -> _TickGraph:
+        """The tick graph's fixed buffers; new ones (and a capture to come)
+        when there are none yet or the pools have moved."""
+        ptrs = self._pool_ptrs()
+        if self._graph is None or self._graph.ptrs != ptrs:
+            n = self.engine.lanes * (self.pool.pages_per_slot + 3)
+            self._graph = _TickGraph(n, self.engine.device, ptrs)
+        return self._graph
+
+    def _scratch_inputs(self) -> torch.Tensor:
+        """Lane inputs with every lane a scratch lane: the capture's warm-up
+        runs read and write the scratch page and slot only."""
+        lanes, pp = self.engine.lanes, self.pool.pages_per_slot
+        host = np.zeros(lanes * (pp + 3), dtype=np.int32)
+        host[:lanes * pp] = self.pool.scratch_page
+        host[lanes * (pp + 2):] = self.pool.scratch_slot
         return torch.from_numpy(host).to(self.engine.device)
+
+    def _capture(self, g: _TickGraph) -> None:
+        """Warm the tick up on scratch lanes, then capture it over ``g``'s
+        fixed buffers into the device's shared pool.  A capture error is
+        raised, never taken as a cue to run eagerly."""
+        scratch = self._scratch_inputs()
+        dev = g.ints.device
+        if dev.type != "cuda":
+            for _ in range(GRAPH_WARMUP):
+                self._tick(scratch)
+            return
+        # a stream of the engine's device (the graph's default capture
+        # stream is made once, on whichever device is current then)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                self._tick(scratch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=_graph_pool(dev), stream=side):
+            g.toks = self._tick(g.ints)
+        g.graph = graph
+
+    def _replay(self, g: _TickGraph) -> torch.Tensor:
+        """The graphed tick's device work over its fixed buffers (captured
+        first on the runtime's first tick) → the (lanes,) int32 tokens."""
+        tr = self.engine.tracer
+        if g.toks is None:
+            with phase_span(tr, "tick.capture"):
+                self._capture(g)
+            self.tick_graph["captures"] += 1
+        with phase_span(tr, "tick.replay"):
+            if g.graph is not None:
+                g.graph.replay()
+            else:
+                g.toks = self._tick(g.ints)
+        self.tick_graph["replays"] += 1
+        return g.toks
 
     def _upload_event(self, a_p, ex_p) -> tuple[torch.Tensor, torch.Tensor]:
         """One host→device copy of a staged mapping event."""
@@ -419,7 +546,13 @@ class PagedRuntime:
                 if sched is not None:
                     with phase_span(tr, "map.inputs", event):
                         a_d, ex_d = self._upload_event(a_p, ex_p)
-                toks = self._tick(ints)
+                if self._graphed:
+                    toks = self._replay(self._graph)
+                else:
+                    toks = self._tick(ints)
+                    self.tick_graph["eager"] += 1
+                if tr is not None:
+                    tr.counter("tick.graph", **self.tick_graph)
                 if sched is None:
                     buf = toks
                 else:
@@ -469,9 +602,10 @@ class PagedRuntime:
     def _tick(self, ints: torch.Tensor) -> torch.Tensor:
         """The decode step of a tick from its uploaded int32 inputs: gather
         pages → dense view → ``decode_step`` with per-lane positions →
-        scatter the written token and state rows → the (lanes,) argmax."""
+        scatter the written token and state rows → the (lanes,) argmax.
+        The body a tick graph captures; run eagerly, its phases are spans."""
         eng = self.engine
-        tr = eng.tracer
+        tr = None if self._graphed else eng.tracer
         lanes = eng.lanes
         pp, ps = self.pool.pages_per_slot, self.pool.page_size
         table = ints[:lanes * pp].view(lanes, pp).long()

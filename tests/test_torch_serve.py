@@ -359,6 +359,173 @@ def test_snapshot_restore_moves_a_mamba_request_between_engines():
 
 
 # ---------------------------------------------------------------------------
+# the graphed tick's fixed buffers
+# ---------------------------------------------------------------------------
+
+def _serve_ticks(eng, reqs, order, seed, fab=None, moves=()):
+    """Drive ``eng``'s paged runtime: admit ``reqs`` in ``order`` (FIFO,
+    queueing on a refusal), tick once an iteration, every other tick
+    carrying a mapping event on ``fab`` where one is given, and retire what
+    finished.  At the iterations in ``moves`` the lowest active slot is
+    snapshot, dropped and restored (it comes back on other pages).  Returns
+    the outputs by request, every tick's tokens and every decision."""
+    rng = np.random.default_rng(seed)
+    pending = list(order)
+    slot_req, out, ticks, decisions = {}, {}, [], []
+    it = 0
+    while len(out) < len(reqs):
+        while pending:
+            slot = eng.admit(*reqs[pending[0]])
+            if slot is None:
+                break
+            slot_req[slot] = pending.pop(0)
+        active = eng.paged.active_slots()
+        if it in moves and active:
+            snap = eng.snapshot_pages(active[0])
+            req = slot_req.pop(active[0])
+            eng.retire(active[0])
+            slot = eng.restore_pages(snap)
+            assert slot is not None
+            slot_req[slot] = req
+        if fab is not None and it % 2 == 0:
+            avg, ex = _event(rng, int(rng.integers(2, 10)), fab.num_pes)
+            toks, decision = eng.decode_tick((avg, ex, fab))
+            if toks:
+                decisions.append(decision)
+        else:
+            toks = eng.decode_tick()
+        ticks.append(toks)
+        for slot in eng.finished_slots():
+            out[slot_req.pop(slot)] = eng.retire(slot)
+        it += 1
+        assert it < 10_000, "paged drain did not converge"
+    return out, ticks, decisions
+
+
+def _same_decisions(a, b):
+    assert len(a) == len(b)
+    for da, db in zip(a, b):
+        for x, y in zip(da, db):
+            np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+def _graph_vs_eager(make, reqs, order, seed, moves, device):
+    """The same traffic through an eager runtime and a graphed one (on the
+    CPU: the captured body called over the fixed buffers), each with its
+    own fused fabric.  Returns both runs and both runtimes' counts."""
+    runs = []
+    for graphed in (False, True):
+        eng, rt = make()
+        rt._graphed = graphed
+        fab = MappingFabric(4, backend="fused", device=device,
+                            device_counters=True)
+        runs.append((*_serve_ticks(eng, reqs, order, seed, fab, moves),
+                     dict(rt.tick_graph)))
+    (out_e, ticks_e, dec_e, n_e), (out_g, ticks_g, dec_g, n_g) = runs
+    assert ticks_g == ticks_e
+    _same_decisions(dec_g, dec_e)
+    assert dec_g
+    for i in range(len(reqs)):
+        np.testing.assert_array_equal(out_g[i], out_e[i])
+    taken = sum(1 for t in ticks_e if t)
+    assert n_e == {"captures": 0, "replays": 0, "eager": taken}
+    assert n_g == {"captures": 1, "replays": taken, "eager": 0}
+    return out_g, taken
+
+
+@pytest.mark.parametrize("arch", ["dense", "falcon_mamba_7b"])
+def test_fixed_buffer_tick_is_the_eager_tick_and_the_oracle(arch):
+    """The graphed tick's body over its fixed buffers, with its warm-up on
+    the scratch lanes, gives the eager tick's tokens and fused decisions
+    bit for bit, and each request the dense oracle's sequence, under random
+    admission orders, pool sizes that force queueing and page reuse, and
+    a slot snapshot, dropped and restored mid-decode."""
+    for seed in range(3):
+        rng = np.random.default_rng(100 + seed)
+        if arch == "dense":
+            reqs, oracle, lanes = _requests(5, rng), _oracle(), 8
+        else:
+            reqs = _arch_requests(5, rng, get_smoke_config(arch).vocab_size)
+            oracle, lanes = _arch_engine(arch), 4
+        max_batch = int(rng.integers(2, lanes + 1))
+        num_pages = int(rng.choice([4, 8, 4 * max_batch]))
+
+        def make():
+            eng = _engine() if arch == "dense" else _arch_engine(arch)
+            return eng, eng.start_paged(max_batch=max_batch, page_size=8,
+                                        num_pages=num_pages)
+
+        out, _ = _graph_vs_eager(make, reqs,
+                                 rng.permutation(len(reqs)).tolist(), seed,
+                                 {1, 4}, "cpu")
+        for i, (p, nt) in enumerate(reqs):
+            np.testing.assert_array_equal(out[i],
+                                          oracle.generate(p[None], nt)[0])
+
+
+def test_rebind_drops_the_tick_graph_and_moved_pools_capture_again():
+    eng = _engine()
+    rt = eng.start_paged(max_batch=2, page_size=8)
+    assert rt._graphed is False and rt._graph is None       # the CPU
+    rt._graphed = True
+    prompt = np.arange(1, 8, dtype=np.int32)
+    eng.admit(prompt, 6)
+    toks = [eng.decode_tick()]
+    g = rt._graph
+    assert g is not None and g.toks is not None and g.graph is None
+    rt.rebind()
+    assert rt._graph is None and rt._graphed is False
+    rt._graphed = True
+    toks.append(eng.decode_tick())
+    assert rt._graph is not g and rt.tick_graph["captures"] == 2
+    for name in list(rt.pool.pools):                        # pools moved
+        rt.pool.pools[name] = rt.pool.pools[name].clone()
+    toks.append(eng.decode_tick())
+    assert rt.tick_graph == {"captures": 3, "replays": 3, "eager": 0}
+    while not eng.finished_slots():
+        toks.append(eng.decode_tick())
+    slot, = eng.finished_slots()
+    np.testing.assert_array_equal(eng.retire(slot),
+                                  _oracle().generate(prompt[None], 6)[0])
+    assert [t[slot] for t in toks] == \
+        _oracle().generate(prompt[None], 6)[0][len(prompt) + 1:].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["deepseek_7b", "falcon_mamba_7b",
+                                  "deepseek_v2_236b", "jamba_v0_1_52b",
+                                  "gemma2_9b"])
+def test_graph_replay_is_the_eager_tick_on_the_card(arch, dtype):
+    """On the card: over 64 ticks and more, with admissions, retires, page
+    reuse and a slot moved between them, the CUDA graph's replays give the
+    eager tick's tokens and fused decisions bit for bit; one capture a
+    runtime, one replay a tick taken.  GQA (deepseek_7b), Mamba, MLA with
+    MoE (deepseek_v2_236b), the Mamba / attention / MoE hybrid (jamba) and
+    gemma2's scaled embedding, soft caps and local windows, at smoke
+    widths, four lanes.  (A page snapshot is numpy, which has no bfloat16:
+    slots move in the float32 cases.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph is captured on one")
+    cfg = get_smoke_config(arch).with_(param_dtype=dtype,
+                                       compute_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(25)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(rng.choice(CHUNKABLE)))
+             .astype(np.int32), int(rng.integers(6, 30))) for _ in range(24)]
+
+    def make():
+        eng = ServeEngine(cfg, params, max_len=64, lanes=4)
+        return eng, eng.start_paged(max_batch=4, page_size=8, num_pages=20)
+
+    moves = {7, 30} if dtype == "float32" else ()
+    _, taken = _graph_vs_eager(make, reqs, range(len(reqs)), 25, moves,
+                               "cuda")
+    assert taken >= 64
+
+
+# ---------------------------------------------------------------------------
 # the fused tick
 # ---------------------------------------------------------------------------
 

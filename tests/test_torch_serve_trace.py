@@ -48,14 +48,17 @@ PARENT = {"engine.admit": "frontend.iteration",
           "admit.write": "engine.admit",
           "admit.wait": "engine.admit"}
 
+# a fused tick's decision phases (the front end's map.* lie outside it)
+TICK_MAP = ("map.inputs", "map.launch", "map.commit")
+
 _CACHE: dict = {}
 
 
-def _params():
-    if "params" not in _CACHE:
-        _CACHE["params"] = init_params(CFG, torch.Generator().manual_seed(0),
-                                       device="cpu")
-    return _CACHE["params"]
+def _params(device="cpu"):
+    if ("params", device) not in _CACHE:
+        _CACHE["params", device] = init_params(
+            CFG, torch.Generator(device=device).manual_seed(0), device=device)
+    return _CACHE["params", device]
 
 
 def _requests():
@@ -69,14 +72,52 @@ def _requests():
     return out
 
 
-def _serve(tracer=None):
+def _watch(eng, i, graphed, ticks, move):
+    """Record replica ``i``'s tick results in ``ticks``; before its tick
+    ``move[0]``, rebind its runtime (``move[1] == "rebind"``) or move its
+    pools to new addresses (``"pools"``), as a reshard would."""
+    tick, n = eng.decode_tick, [0]
+
+    def watched(sched=None):
+        rt = eng.paged
+        if move is not None and n[0] == move[0]:
+            if move[1] == "rebind":
+                rt.rebind()
+                rt._graphed = graphed
+            else:
+                for name in list(rt.pool.pools):
+                    rt.pool.pools[name] = rt.pool.pools[name].clone()
+        n[0] += 1
+        out = tick(sched)
+        ticks.append((i, out[0] if sched is not None else out))
+        return out
+
+    eng.decode_tick = watched
+
+
+def _serve(tracer=None, graphed=False, engines=None, device="cpu",
+           ticks=None, moves=None):
     """One fused ``run_continuous`` on a fresh fleet; the tracer, if any, on
     the engines only.  Returns the outputs, the stats and each adopted
-    plan.  Two lanes and 6 pages a replica make admissions queue."""
+    plan.  Two lanes and 6 pages a replica make admissions queue.
+    ``graphed`` runs each replica's ticks on the graph path's fixed buffers
+    (on the CPU, the captured body called directly); on a card, False keeps
+    them eager.  ``engines``, a list, receives the replicas' engines;
+    ``ticks``, a list, every tick's (replica, tokens); ``moves`` maps a
+    replica to a :func:`_watch` move."""
     fleet = [ReplicaHandle(f"replica{i}", ServeEngine(
-        CFG, _params(), max_len=32, lanes=2, tracer=tracer), speed=s)
+        CFG, _params(device), max_len=32, lanes=2, tracer=tracer), speed=s)
         for i, s in enumerate(SPEEDS)]
-    fab = MappingFabric(len(fleet), backend="fused", device="cpu",
+    if graphed or device != "cpu":
+        for r in fleet:
+            r.engine.start_paged(max_batch=2, page_size=8, num_pages=6)
+            r.engine.paged._graphed = graphed
+    if ticks is not None:
+        for i, r in enumerate(fleet):
+            _watch(r.engine, i, graphed, ticks, (moves or {}).get(i))
+    if engines is not None:
+        engines.extend(r.engine for r in fleet)
+    fab = MappingFabric(len(fleet), backend="fused", device=device,
                         device_counters=True)
     front = HeftFrontEnd(fleet, fabric=fab)
     plans, adopt = [], front._adopt_decision
@@ -97,6 +138,15 @@ def _traced():
         tr = Tracer()
         _CACHE["traced"] = (tr, *_serve(tr))
     return _CACHE["traced"]
+
+
+def _traced_graph():
+    if "traced_graph" not in _CACHE:
+        tr, engines = Tracer(), []
+        _CACHE["traced_graph"] = (tr, *_serve(tr, graphed=True,
+                                              engines=engines),
+                                  [e.paged for e in engines])
+    return _CACHE["traced_graph"]
 
 
 def _spans(tr, prefix=""):
@@ -256,3 +306,108 @@ def test_a_span_open_across_a_profilers_start_or_stop(stop_inside):
     assert [e.name for e in tr.events()] == ["inner", "outer"]
     assert ("outer" in host) == stop_inside
     assert ("inner" in host) == (not stop_inside)
+
+
+def test_graph_path_replay_lies_inside_the_tick_beside_its_other_phases():
+    """On the graph path (the CPU stand-in: the captured body over the fixed
+    buffers) one ``tick.replay`` replaces a tick's gather, step and
+    scatter, inside ``engine.decode_tick``, overlapping none of its other
+    phases (``tick.upload``, ``tick.wait``, ``map.*``); each runtime has one
+    ``tick.capture``, on its first tick."""
+    tr, _, stats, _, _, runtimes = _traced_graph()
+    assert tr.dropped == 0
+    ticks = _spans(tr, "engine.decode_tick")
+    kids = {}
+    for e in _spans(tr):
+        if e.name.startswith("tick.") or e.name in TICK_MAP:
+            kids.setdefault(id(_parent_of(e, ticks)), []).append(e)
+    captures = 0
+    for tick in ticks:
+        mine = sorted(kids.get(id(tick), []), key=lambda e: e.ts)
+        names = [e.name for e in mine]
+        for a, b in zip(mine, mine[1:]):
+            assert a.ts + a.dur <= b.ts + 1e-3, (a.name, b.name)
+        if not tick.args["active"]:
+            assert names == []
+            continue
+        captures += names.count("tick.capture")
+        for phase in ("tick.upload", "tick.replay", "tick.wait",
+                      "tick.tokens"):
+            assert names.count(phase) == 1, (phase, names)
+        assert not {"tick.gather", "tick.step", "tick.scatter"} & set(names)
+        if "map.launch" in names:
+            i = names.index("tick.replay")
+            assert names[i - 1:i + 2] in (["tick.upload", "tick.replay",
+                                           "map.launch"],
+                                          ["map.inputs", "tick.replay",
+                                           "map.launch"])
+    assert captures == len(runtimes) == len(SPEEDS)
+    assert sum(rt.tick_graph["replays"] for rt in runtimes) == \
+        sum(1 for t in ticks if t.args["active"])
+
+
+def test_graph_counter_counts_what_the_runtimes_count():
+    """One ``tick.graph`` counter a tick taken, carrying its runtime's
+    cumulative counts: together, each runtime's counts after each of its
+    ticks, and the last equal to the runtime's own ints."""
+    from collections import Counter
+    tr, _, _, _, _, runtimes = _traced_graph()
+    seen = Counter(tuple(e.args[k] for k in ("captures", "replays", "eager"))
+                   for e in tr.events() if e.name == "tick.graph")
+    assert all(e.ph == "C" for e in tr.events() if e.name == "tick.graph")
+    want = Counter()
+    for rt in runtimes:
+        n = rt.tick_graph
+        assert n["captures"] == 1 and n["eager"] == 0 and n["replays"] > 0
+        want.update((1, k, 0) for k in range(1, n["replays"] + 1))
+    assert seen == want
+    eager = [e.args for e in _traced()[0].events() if e.name == "tick.graph"]
+    assert eager and all(a["captures"] == a["replays"] == 0 for a in eager)
+
+
+def test_graph_path_changes_no_token_and_no_decision():
+    _, outs, stats, plans, avail, _ = _traced_graph()
+    outs0, stats0, plans0, avail0 = _serve()
+    for a, b in zip(outs, outs0):
+        np.testing.assert_array_equal(a, b)
+    assert plans == plans0 and avail == avail0
+    assert {k: v for k, v in stats.items() if k != "latency_s"} == \
+        {k: v for k, v in stats0.items() if k != "latency_s"}
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda",
+                                                 marks=pytest.mark.cuda)])
+def test_graphed_fleet_with_a_rebind_and_a_pool_move_is_the_eager_fleet(
+        device):
+    """A fused ``run_continuous`` over three graphed replicas (on the card
+    they share one graph memory pool), one rebound and another's pools
+    moved mid-run, so each captures again while the others' graphs stay
+    live: every tick's tokens, every output, every adopted plan and the
+    fabric's resident availabilities are the eager fleet's, bit for bit.
+    One capture a runtime and one more a move, one replay a tick taken.
+    (On the CPU the graph path is its stand-in.)"""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphs are captured on one")
+    moves = {0: (3, "rebind"), 2: (5, "pools")}
+    runs = []
+    for graphed in (False, True):
+        engines, ticks = [], []
+        runs.append((*_serve(graphed=graphed, engines=engines, device=device,
+                             ticks=ticks, moves=moves),
+                     ticks, [dict(e.paged.tick_graph) for e in engines]))
+    (outs_e, stats_e, plans_e, avail_e, ticks_e, n_e), \
+        (outs_g, stats_g, plans_g, avail_g, ticks_g, n_g) = runs
+    assert ticks_g == ticks_e and plans_g == plans_e and plans_g
+    assert np.array_equal(np.array(avail_g).view(np.int64),
+                          np.array(avail_e).view(np.int64))
+    for a, b in zip(outs_g, outs_e):
+        np.testing.assert_array_equal(a, b)
+    assert {k: v for k, v in stats_g.items() if k != "latency_s"} == \
+        {k: v for k, v in stats_e.items() if k != "latency_s"}
+    for i in range(len(SPEEDS)):
+        taken = sum(1 for r, t in ticks_e if r == i and t)
+        assert sum(1 for r, _ in ticks_e if r == i) > moves.get(i, (0,))[0]
+        assert n_e[i] == {"captures": 0, "replays": 0, "eager": taken}
+        assert n_g[i] == {"captures": 1 + (i in moves), "replays": taken,
+                          "eager": 0}
