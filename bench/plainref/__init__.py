@@ -10,4 +10,10 @@ inputs the benchmark made, what the program derived.
   Falcon-Mamba's RMS-normalised B / C / dt.
 * :mod:`heft_rt` — the HEFT_RT mapping event of the paper, in float32.
 * :mod:`precision` — the float32 reference and its lower-precision control.
+
+A model's reference is a module here that defines ``parameters(cfg)``,
+``hidden`` and ``logits``, and a module-level ``SMOKE`` dict: the model at
+a small float32 size for the benchmark's CPU tests.  The tests find every
+such module by its file (``bench/tests/smoke.py`` ``references``), so a
+new reference is tested by adding its file alone.
 """

@@ -22,6 +22,12 @@ import math
 
 import torch
 
+# the smoke model of the benchmark's CPU tests: the program's smoke widths
+SMOKE = {"num_layers": 3, "d_model": 64, "num_heads": 4, "num_kv_heads": 4,
+         "d_ff": 172, "vocab_size": 160, "norm_eps": 1e-6,
+         "rope_theta": 10000.0, "param_dtype": "float32",
+         "compute_dtype": "float32"}
+
 
 def parameters(cfg: dict) -> list[tuple[str, tuple, str, tuple]]:
     """(name, shape, dtype, init) of every weight, in a fixed order.

@@ -34,6 +34,14 @@ from .llama import rms_norm
 
 STEP_BLOCK = 64     # positions whose decay and input terms are made at once
 
+# the smoke model of the benchmark's CPU tests: the program's smoke widths
+SMOKE = {"num_layers": 4, "d_model": 64, "num_heads": 1, "num_kv_heads": 1,
+         "d_ff": 0, "vocab_size": 128, "block_pattern": ["mamba"],
+         "norm_eps": 1e-5,
+         "ssm": {"d_inner": 128, "d_state": 8, "d_conv": 4, "dt_rank": 8,
+                 "chunk": 4, "bcdt_rms": True},
+         "param_dtype": "float32", "compute_dtype": "float32"}
+
 
 def parameters(cfg: dict) -> list[tuple[str, tuple, str, tuple]]:
     """(name, shape, dtype, init) of every weight, in a fixed order.

@@ -1,12 +1,17 @@
 """Percentiles, rates, the bounds and the operation counts, on numbers
 worked by hand."""
 
+import json
 import math
+from pathlib import Path
 
 import pytest
 
 from bench import bounds, stats
 from bench.plainref import llama, mamba1
+from bench.tests.smoke import MLA_MOE
+
+BENCH = Path(__file__).resolve().parents[1]
 
 DEEPSEEK = {"num_layers": 30, "d_model": 4096, "num_heads": 32,
             "num_kv_heads": 32, "d_ff": 11008, "vocab_size": 102400,
@@ -91,3 +96,106 @@ def test_flops_by_hand():
 def test_busy_union():
     assert bounds.busy_us([(0, 10), (5, 15), (20, 25), (21, 22)]) == 20
 
+
+
+def _mla_moe_params():
+    """``MLA_MOE``'s weights as a reference lists them (the program's
+    names), float32: per layer the latent projections, the query's latent,
+    the output; a dense first layer's SwiGLU, then the router, 8 stacked
+    routed experts and 2 shared ones (one SwiGLU of 96)."""
+    f, n = "float32", ("normal", 0.02)
+    out = [("embed", (160, 64), f, n), ("final_norm", (64,), f, n),
+           ("lm_head", (64, 160), f, n)]
+    for i in range(3):
+        p = f"layers.{i}."
+        out += [(p + "norm_1", (64,), f, n), (p + "norm_2", (64,), f, n),
+                (p + "mixer.w_dkv", (64, 32), f, n),
+                (p + "mixer.kv_norm", (32,), f, n),
+                (p + "mixer.w_kr", (64, 8), f, n),
+                (p + "mixer.w_uk", (32, 4, 16), f, n),
+                (p + "mixer.w_uv", (32, 4, 16), f, n),
+                (p + "mixer.wo", (64, 64), f, n),
+                (p + "mixer.w_dq", (64, 48), f, n),
+                (p + "mixer.q_norm", (48,), f, n),
+                (p + "mixer.w_uq", (48, 4, 24), f, n)]
+        if i == 0:
+            out += [(p + "ffn.w_gate", (64, 192), f, n),
+                    (p + "ffn.w_up", (64, 192), f, n),
+                    (p + "ffn.w_down", (192, 64), f, n)]
+        else:
+            out += [(p + "ffn.router", (64, 8), f, n),
+                    (p + "ffn.experts.w_gate", (8, 64, 48), f, n),
+                    (p + "ffn.experts.w_up", (8, 64, 48), f, n),
+                    (p + "ffn.experts.w_down", (8, 48, 64), f, n),
+                    (p + "ffn.shared.w_gate", (64, 96), f, n),
+                    (p + "ffn.shared.w_up", (64, 96), f, n),
+                    (p + "ffn.shared.w_down", (96, 64), f, n)]
+    return out
+
+
+def test_mla_moe_cache_and_flops_by_hand():
+    params = _mla_moe_params()
+    # 3 attention layers x (latent 32 + rotary key 8) x 4 bytes
+    assert bounds.cache_bytes(MLA_MOE) == (480, 0)
+    dense, per_key, head = bounds.token_flops(MLA_MOE, params)
+    attn = 64 * 32 + 64 * 8 + 2 * 32 * 4 * 16 + 64 * 64 + 64 * 48 \
+        + 48 * 4 * 24                                   # 18,432 a layer
+    first = 3 * 64 * 192                                # the dense layer
+    moe = 64 * 8 + 3 * 64 * 48 * 2 + 3 * 64 * 96        # top 2 of 8
+    assert dense == 2.0 * (3 * attn + first + 2 * moe) == 333_824
+    # scores over nope + rope, values over v_head: 2·4·24 + 2·4·16 a layer
+    assert per_key == 3 * (2 * 4 * 24 + 2 * 4 * 16) == 960
+    assert head == 2.0 * 64 * 160
+    assert bounds.prefill_flops(MLA_MOE, params, 3) == \
+        3 * dense + 6 * per_key + head
+    assert bounds.decode_flops(MLA_MOE, params, 2, 10) == \
+        2 * (333_824 + 20_480) + 9_600
+
+
+def test_mla_moe_tick_by_hand():
+    params = _mla_moe_params()
+    assert bounds.routed_experts(params) == (2, 3 * 64 * 48 * 4)
+    with pytest.raises(ValueError, match="experts"):
+        bounds.tick_weight_bytes(params, 4, 64)
+    # everything but the embedding and the routed experts, 4 rows of the
+    # embedding, and 5 experts read (say 3 in layer 1, 2 in layer 2)
+    rest = 64 + 64 * 160 + (208 + 18_432 + 3 * 64 * 192) \
+        + 2 * (208 + 18_432 + 64 * 8 + 3 * 64 * 96)
+    wb = bounds.tick_weight_bytes(params, 4, 64, experts_read=5)
+    assert wb == 4 * (rest + 4 * 64) + 5 * 36_864 == 749_248
+    with pytest.raises(ValueError, match="experts"):
+        bounds.tick_bound(MLA_MOE, wb, 100, 4)
+    ms, by = bounds.tick_bound(MLA_MOE, wb, 100, 4, params=params,
+                               experts_read=5)
+    assert by == "bytes"
+    assert ms == pytest.approx((wb + 480 * 104 + 8 * 4) / 3.35e12 * 1e3)
+    # with many lanes the operations bind: each lane works 2 experts of
+    # each of the 2 MoE layers, whatever the tick read
+    lanes = 4096
+    wb = bounds.tick_weight_bytes(params, lanes, 64, experts_read=16)
+    ms, by = bounds.tick_bound(MLA_MOE, wb, 0, lanes, params=params,
+                               experts_read=16)
+    lane = wb - 16 * 36_864 + 2 * 2 * 36_864
+    assert by == "operations"
+    assert ms == pytest.approx(2 * lanes * lane / 4 / 989e12 * 1e3)
+
+
+@pytest.mark.parametrize("name, ref, want", [
+    ("deepseek-7b", llama,
+     ((491520, 0), (12142510080.0, 491520.0, 838860800.0), 12982435840,
+      (4.610139720597015, "bytes"), 9584132587520.0, 106308567040.0)),
+    ("falcon-mamba-7b", mamba1,
+     ((0, 36700160), (13518241792.0, 0.0, 532676608.0), 14033174528,
+      (4.3642916871641795, "bytes"), 10504206548992.0, 112407347200.0)),
+])
+def test_existing_configs_count_as_before(name, ref, want):
+    """The configuration files' counts, bitwise as they were before MLA
+    and MoE were counted (8 lanes, 5000 keys, a 777-token prefill)."""
+    cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())["model"]
+    params = ref.parameters(cfg)
+    wb = bounds.tick_weight_bytes(params, 8, cfg["d_model"])
+    got = (bounds.cache_bytes(cfg), bounds.token_flops(cfg, params), wb,
+           bounds.tick_bound(cfg, wb, 5000, 8),
+           bounds.prefill_flops(cfg, params, 777),
+           bounds.decode_flops(cfg, params, 8, 5000))
+    assert got == want

@@ -1,7 +1,8 @@
 """The harness end to end on the CPU at smoke widths: a sound run comes out
 correct, and each fault a serving cell can have, planted under the timed
-path, makes ``correct`` false.  (The harness's look for a card is skipped:
-these call ``result.measure`` with ``device="cpu"``.)"""
+path, makes ``correct`` false, for every model reference under
+``bench/plainref/``.  (The harness's look for a card is skipped: these
+call ``result.measure`` with ``device="cpu"``.)"""
 
 import time
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from bench import result
-from bench.tests.smoke import cell
+from bench.tests.smoke import cell, references
 
 SECONDS = 2.0
 
@@ -20,7 +21,7 @@ def measure(spec, seed=2 ** 31 + 7):
                           time.perf_counter())
 
 
-@pytest.mark.parametrize("reference", ["llama", "mamba1"])
+@pytest.mark.parametrize("reference", references())
 def test_sound_run_is_correct(reference):
     line = measure(cell(reference))
     assert line["correct"], line["checks"]
@@ -78,7 +79,7 @@ TICK_FAULTS = {"state_unchanged": _stale_state, "half_batch": _half_batch,
                "token_altered": _altered_token}
 
 
-@pytest.mark.parametrize("reference", ["llama", "mamba1"])
+@pytest.mark.parametrize("reference", references())
 @pytest.mark.parametrize("fault", sorted(TICK_FAULTS))
 def test_planted_tick_fault_is_not_correct(monkeypatch, fault, reference):
     from repro_torch.serve import paging

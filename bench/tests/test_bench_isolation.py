@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from bench.tests.smoke import references
+
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro", "benchmarks", "chip_smoke"}
@@ -57,8 +59,10 @@ def test_a_whole_run_loads_no_jax_and_no_benchmarks():
 
 
 def test_references_load_nothing_of_the_program():
-    loaded = _loaded("import bench.plainref.llama, bench.plainref.mamba1, "
-                     "bench.plainref.heft_rt, bench.plainref.precision")
+    mods = [f"bench.plainref.{r}" for r in references()]
+    assert mods, "no model reference found"
+    loaded = _loaded("import " + ", ".join(
+        mods + ["bench.plainref.heft_rt", "bench.plainref.precision"]))
     assert not loaded & (FORBIDDEN | {"repro_torch"})
 
 

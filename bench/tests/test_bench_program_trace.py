@@ -9,14 +9,14 @@ import pytest
 import torch
 
 from bench import harness, result
-from bench.tests.smoke import cell
+from bench.tests.smoke import cell, references
 
 SECONDS = 2.0
 NEW = ("tick_issue_ms", "admit_issue_ms", "queue_wait_p50_ms",
        "frontend_self_ms", "decision_host_us")
 
 
-@pytest.mark.parametrize("reference", ["llama", "mamba1"])
+@pytest.mark.parametrize("reference", references())
 def test_program_span_readers_on_a_traced_smoke_cell(reference):
     torch.set_num_threads(1)
     run, _ = harness.execute(cell(reference, trace=True), 2 ** 31 + 11,

@@ -1,20 +1,22 @@
 """The plain references agree with themselves, one row against a padded
-batch, at a small size; the fp8 control differs from float32."""
+batch, at a small size; the fp8 control differs from float32.  Every model
+reference under ``bench/plainref/`` is tested, found by its file."""
+
+import importlib
 
 import pytest
 import torch
 
-from bench.plainref import llama, mamba1
+from bench.plainref import llama
 from bench.plainref.precision import Float32, Fp8
-from bench.tests.smoke import MODELS
+from bench.tests.smoke import references
 from bench.weights import make_weights
 
-REFS = {"llama": llama, "mamba1": mamba1}
 
-
-@pytest.mark.parametrize("name", sorted(REFS))
+@pytest.mark.parametrize("name", references())
 def test_unbatched_equals_batched(name):
-    ref, cfg = REFS[name], MODELS[name]
+    ref = importlib.import_module(f"bench.plainref.{name}")
+    cfg = ref.SMOKE
     w = make_weights(ref.parameters(cfg), 11, "cpu")
     g = torch.Generator().manual_seed(3)
     lens = [9, 17, 4]
@@ -35,11 +37,11 @@ def test_unbatched_equals_batched(name):
 
 
 def test_weights_from_the_seed():
-    params = llama.parameters(MODELS["llama"])
+    params = llama.parameters(llama.SMOKE)
     a, b = make_weights(params, 5, "cpu"), make_weights(params, 5, "cpu")
     c = make_weights(params, 6, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed"], c["embed"])
-    d = MODELS["llama"]["d_model"]
+    d = llama.SMOKE["d_model"]
     assert abs(a["layers.0.mixer.wq"].std().item() - d ** -0.5) < 0.2 * d ** -0.5
     assert abs(a["embed"].std().item() - 0.02) < 0.002
