@@ -11,7 +11,10 @@ Counterpart of ``repro.models.attention``.
 * MLA (DeepSeek-V2) caches only the compressed latent (``kv_lora_rank`` +
   the RoPE dims).  Prefill expands it to per-head K / V and runs the
   chunked attention; decode folds ``w_uk`` into the query, attends in the
-  latent space and applies ``w_uv`` after.
+  latent space and applies ``w_uv`` after.  A config carrying a YaRN
+  ``rope_scaling`` (DeepSeek-V2-Lite) rotates the RoPE dims at YaRN's
+  frequencies and scales the softmax by its ``mscale²``, in prefill and
+  decode alike.
 
 Scores, softmax and the value sum are explicit ``einsum`` / ``softmax`` in
 float32 with the reference's ``NEG`` mask: masked slots get ``NEG`` before
@@ -56,8 +59,9 @@ from repro_torch.dist.hints import (checkpointed, current_policy, is_dtensor,
                                     shard_offset, split_over, whole_along)
 from repro_torch.dist.sharding import P, placements_for, spec_of
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_rope, dense_init, dtype_of, param,
-                                       rms_norm, softcap)
+from repro_torch.models.layers import (apply_rope, apply_rope_yarn,
+                                       dense_init, dtype_of, param, rms_norm,
+                                       softcap, yarn_scales)
 
 NEG = -2.3e38  # practical -inf for f32 masking
 
@@ -521,8 +525,24 @@ def _mla_queries(params: MLAttention, x, cfg: ModelConfig, positions, *,
     else:
         q = torch.einsum("bsd,dhe->bshe", x, params.wq)
     q = shard_hint(q, "attn_heads", whole=whole)
-    return q[..., :nope], apply_rope(q[..., nope:], positions,
-                                     cfg.rope_theta)
+    return q[..., :nope], _mla_rope(q[..., nope:], positions, cfg)
+
+
+def _mla_rope(x, positions, cfg: ModelConfig):
+    """MLA's rotary dims: YaRN where the config carries a ``rope_scaling``
+    (``configs/deepseek_v2_lite.py``), else :func:`apply_rope` as it is."""
+    s = getattr(cfg, "rope_scaling", None)
+    if s is None:
+        return apply_rope(x, positions, cfg.rope_theta)
+    return apply_rope_yarn(x, positions, cfg.rope_theta, s)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: ``(nope + rope)^-0.5``, times YaRN's ``mscale²``
+    under a ``rope_scaling`` (DeepSeek-V2's attention temperature)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    s = getattr(cfg, "rope_scaling", None)
+    return scale if s is None else scale * yarn_scales(s)[1]
 
 
 def mla_block(
@@ -539,14 +559,14 @@ def mla_block(
     B, S, _ = x.shape
     H, vd = cfg.num_heads, cfg.v_head_dim
     rope_d = cfg.qk_rope_head_dim
-    scale = (cfg.qk_nope_head_dim + rope_d) ** -0.5
+    scale = _mla_scale(cfg)
     f32 = torch.float32
 
     one = (1,) if decode_pos is not None else ()
     q_nope, q_rope = _mla_queries(params, x, cfg, positions, whole=one)
     ckv = rms_norm(x @ params.w_dkv, params.kv_norm, cfg.norm_eps)  # (B,S,R)
-    kr = apply_rope((x @ params.w_kr)[:, :, None, :], positions,
-                    cfg.rope_theta)[:, :, 0, :]                     # (B,S,rope)
+    kr = _mla_rope((x @ params.w_kr)[:, :, None, :], positions,
+                   cfg)[:, :, 0, :]                             # (B,S,rope)
 
     heads = _heads_spec()
     if decode_pos is not None:

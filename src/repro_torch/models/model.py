@@ -402,9 +402,10 @@ def prefill_step(params: Transformer, tokens, cfg: ModelConfig,
 def decode_step(params: Transformer, caches, tokens, pos, cfg: ModelConfig):
     """One decode step.  tokens (B,1); pos: the position of this token, one
     shared (an int or a 0-d tensor) or one per row (a (B,) int tensor, for
-    continuous batching).  Rows are independent, except through the MoE
-    capacity above 4 rows (``models/moe.py``).  The caches are updated in
-    place.  Returns (logits (B,V), caches)."""
+    continuous batching).  Rows are independent, except through a
+    capacity-dispatched MoE above 4 rows (``models/moe.py``); dropless MoE
+    layers keep them independent at any row count.  The caches are
+    updated in place.  Returns (logits (B,V), caches)."""
     hidden, caches, _ = forward(params, tokens, cfg, caches=caches,
                                 decode_pos=pos)
     logits = _unembed(params, hidden[:, -1:, :], cfg)[:, 0, :]

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts with GShard-style grouped capacity dispatch, shared
-experts and an optional dense residual branch (Arctic).
+"""Mixture-of-Experts with GShard-style grouped capacity dispatch, or
+dropless, shared experts and an optional dense residual branch (Arctic).
 
 Counterpart of ``repro.models.moe`` on one device:
 
@@ -29,6 +29,22 @@ with more lanes a token can be dropped because its batch-mates chose the
 same expert first, exactly as in the reference's buckets.  The semantics
 are the reference's, unchanged.
 
+**Dropless** (``moe.capacity_factor`` None; DeepSeek-V2-Lite, as the
+published model serves): no capacity and no groups.  The ``T·top_k``
+(token, expert) pairs are sorted by expert and the experts' SwiGLU runs on
+the routed rows only, as one grouped product over the experts whose
+per-expert row offsets stay on the device (no host sync, so a graphed tick
+captures it): ``torch._grouped_mm`` for bfloat16 on the card, elsewhere
+each row against its own expert's weights.  The rows come back to their
+(token, k) places and combine in float32 in k order.  The gates are the
+top-k softmax probabilities, renormalised only where the config's
+``norm_topk_prob`` says so (a builder's field; default True), times its
+``routed_scaling_factor`` (default 1).  No token is dropped, so a token's
+output depends on its batch-mates only through the grouped product's row
+placement: bitwise not at all for the row-by-row product, and on the card
+only as far as the grouped GEMM's rows are computed alike wherever they
+sit (PERF.md, PR 28).  Meshes run the capacity path only.
+
 Routing ties: ``jax.lax.top_k`` puts the lower expert index first among
 equal probabilities; ``torch.topk`` promises no order, so the experts are
 ranked by a stable descending sort instead.
@@ -36,6 +52,8 @@ ranked by a stable descending sort instead.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from types import SimpleNamespace
 
@@ -186,21 +204,27 @@ def capacity_for(cfg: ModelConfig, tokens_per_group: int) -> int:
     return max(4, c)
 
 
-def _route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
-    """xt (G, T_l, D) → (router logits f32 (G, T_l, E), probabilities,
-    renormalized gates (G, T_l, K), expert ids (G, T_l, K))."""
-    K = cfg.moe.top_k
+def _top_k(router: torch.Tensor, xt: torch.Tensor, K: int):
+    """xt (..., D) → (router logits f32 (..., E), probabilities, the top-K
+    probabilities (..., K), their expert ids (..., K))."""
     # the product in the tokens' dtype, accumulated in f32 (the reference's
     # preferred_element_type): bf16 values are exact in f32
-    logits = xt.to(torch.float32) @ \
-        params.router.to(xt.dtype).to(torch.float32)
+    logits = xt.to(torch.float32) @ router.to(xt.dtype).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
-    gate_vals, expert_ids = gate_vals[..., :K], expert_ids[..., :K]
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
-                                            1e-9)
-    return logits, probs, gate_vals, expert_ids
+    return logits, probs, gate_vals[..., :K], expert_ids[..., :K]
+
+
+def _renormalized(gates: torch.Tensor) -> torch.Tensor:
+    return gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+
+def _route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
+    """xt (G, T_l, D) → (router logits f32 (G, T_l, E), probabilities,
+    renormalized gates (G, T_l, K), expert ids (G, T_l, K))."""
+    logits, probs, gates, ids = _top_k(params.router, xt, cfg.moe.top_k)
+    return logits, probs, _renormalized(gates), ids
 
 
 def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
@@ -208,6 +232,8 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig
     """x: (B, S, D) → (out (B, S, D), metrics {aux_loss, z_loss,
     expert_load}), the load-balance and z losses (f32 scalars) and the
     tokens each expert kept (f32 (E,))."""
+    if dropless(cfg):
+        return _dropless(params, x, cfg)
     B, S, _ = x.shape
     G, whole = _group_layout(B * S)
     if whole is not None:
@@ -313,3 +339,112 @@ def _moe(params: MoE, x: torch.Tensor, cfg: ModelConfig, G: int
     metrics = {"aux_loss": aux_loss, "z_loss": z_loss,
                "expert_load": total_kept.to(torch.float32)}
     return out, metrics
+
+
+# ---------------------------------------------------------------------------
+# dropless routing
+# ---------------------------------------------------------------------------
+
+_ROUTES = contextvars.ContextVar("moe_routes", default=None)
+
+
+def dropless(cfg: ModelConfig) -> bool:
+    """Whether the config's MoE layers run without capacity."""
+    return cfg.moe is not None and cfg.moe.capacity_factor is None
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Collect, in layer order, the (T, top_k) expert ids of every dropless
+    MoE layer run inside the block (the served path counts the experts a
+    tick or a prefill read from them)."""
+    log = []
+    token = _ROUTES.set(log)
+    try:
+        yield log
+    finally:
+        _ROUTES.reset(token)
+
+
+def distinct_experts(routes: list, live: torch.Tensor | None,
+                     num_experts: int) -> torch.Tensor:
+    """The experts the ``live`` rows (bool (T,); all where None) of each
+    recorded layer routed to, counted once a layer and summed over the
+    layers: an int32 scalar on the routes' device."""
+    ids = torch.stack(routes)                                # (L, T, K)
+    if live is not None:                 # dead rows' picks to a spare column
+        ids = torch.where(live[None, :, None], ids, num_experts)
+    hit = torch.zeros((ids.shape[0], num_experts + 1), dtype=torch.int32,
+                      device=ids.device)
+    hit.scatter_(1, ids.flatten(1), 1)
+    return hit[:, :num_experts].sum().to(torch.int32)
+
+
+def route_dropless(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+    """xt (T, D) → (router logits f32 (T, E), probabilities, gates f32
+    (T, K), expert ids (T, K)): the top-k by a stable descending sort, the
+    gates renormalised only under ``norm_topk_prob``, times
+    ``routed_scaling_factor``."""
+    logits, probs, gates, ids = _top_k(router, xt, cfg.moe.top_k)
+    if getattr(cfg, "norm_topk_prob", True):
+        gates = _renormalized(gates)
+    scale = getattr(cfg, "routed_scaling_factor", 1.0)
+    return logits, probs, gates * scale, ids
+
+
+def grouped_swiglu(xs: torch.Tensor, ids: torch.Tensor, offs: torch.Tensor,
+                   w: Experts) -> torch.Tensor:
+    """The experts' SwiGLU of rows sorted by expert: ``xs`` (N, D), their
+    expert ids ``ids`` (N,) and the end offsets of each expert's rows
+    ``offs`` (E,) int32 → (N, D).  bfloat16 on the card: three grouped
+    GEMMs over the device offsets.  Elsewhere (the CPU, float32) each row
+    is a product of its own against its expert's weights, so no row's
+    result depends on the others."""
+    if xs.is_cuda and xs.dtype == torch.bfloat16:
+        h = F.silu(torch._grouped_mm(xs, w.w_gate, offs=offs)) * \
+            torch._grouped_mm(xs, w.w_up, offs=offs)
+        return torch._grouped_mm(h, w.w_down, offs=offs)
+    rows = xs[:, None]
+    h = F.silu(torch.bmm(rows, w.w_gate[ids])) * torch.bmm(rows, w.w_up[ids])
+    return torch.bmm(h, w.w_down[ids])[:, 0]
+
+
+def _dropless(params: MoE, x: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_block` without capacity (the module docstring)."""
+    if current_policy():
+        raise NotImplementedError(f"{cfg.name}: dropless MoE runs without "
+                                  f"a mesh policy only")
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    xt = x.reshape(B * S, D)
+    logits, probs, gates, ids = route_dropless(params.router, xt, cfg)
+    log = _ROUTES.get()
+    if log is not None:
+        log.append(ids)
+
+    flat = ids.reshape(-1)                                   # (T·K,)
+    sorted_ids, order = torch.sort(flat, stable=True)
+    counts = F.one_hot(flat, E).sum(dim=0)                   # (E,)
+    offs = counts.cumsum(0).to(torch.int32)
+    ys = grouped_swiglu(xt[order // K], sorted_ids, offs, params.experts)
+    y = torch.empty_like(ys)
+    y[order] = ys                                            # (token, k) order
+    y = y.view(B * S, K, D)
+    combined = torch.zeros((B * S, D), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        combined = combined + y[:, k].to(torch.float32) * gates[:, k, None]
+    out = combined.to(x.dtype).reshape(B, S, D)
+    if hasattr(params, "shared"):
+        out = out + ffn_block(params.shared, x, cfg)
+    if hasattr(params, "dense"):
+        out = out + ffn_block(params.dense, x, cfg)
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(ids[:, 0], E).to(torch.float32).mean(dim=0)
+    aux_loss = m.router_aux_weight * E * (me * ce).sum()
+    z_loss = m.router_z_weight * torch.logsumexp(logits, dim=-1) \
+        .square().mean()
+    return out, {"aux_loss": aux_loss, "z_loss": z_loss,
+                 "expert_load": counts.to(torch.float32)}

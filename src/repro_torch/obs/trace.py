@@ -82,6 +82,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **args) -> None:
+        """Nothing to add to."""
+
 
 NULL_SPAN = _NullSpan()
 

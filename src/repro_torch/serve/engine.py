@@ -26,10 +26,11 @@ Public contracts:
   exhaustion refuses admission (``admit() -> None``: callers queue, never
   drop), and each request's tokens are bitwise ``generate``'s under any
   admission interleaving.  ``snapshot_pages`` / ``restore_pages`` move one
-  in-flight request between engines.  With MoE layers that holds at 4 lanes
-  or fewer: above 4 a token can be dropped by the expert capacity because
-  of its batch-mates (``models/moe.py``), in the paged tick and in the
-  dense ``generate`` alike, as in the reference.
+  in-flight request between engines.  With capacity-dispatched MoE layers
+  that holds at 4 lanes or fewer: above 4 a token can be dropped by the
+  expert capacity because of its batch-mates (``models/moe.py``), in the
+  paged tick and in the dense ``generate`` alike, as in the reference;
+  dropless MoE layers drop nothing at any lane count.
 * **Front end** — ``run_batch`` (one HEFT_RT mapping event, a whole
   ``generate`` per request) and ``run_continuous`` (per-tick admission:
   HEFT_RT maps arrivals to sticky per-replica FIFO queues, each tick drains
@@ -428,14 +429,21 @@ class ServeEngine:
 
     def admit(self, prompt: np.ndarray, new_tokens: int) -> int | None:
         """Prefill + join the running batch; the slot id, or ``None`` when
-        the pool lacks a slot or pages (callers queue, never drop)."""
+        the pool lacks a slot or pages (callers queue, never drop).  With
+        dropless MoE layers a traced admission's span carries its
+        prefill's distinct routed ``experts`` (summed over the layers) and
+        routed ``rows``."""
         rt = self._require_paged()
         tr = self.tracer
         if tr is None:
             return rt.admit(prompt, new_tokens)
         with tr.span("engine.admit", S0=int(np.asarray(prompt).size),
-                     new_tokens=new_tokens):
-            return rt.admit(prompt, new_tokens)
+                     new_tokens=new_tokens) as sp:
+            slot = rt.admit(prompt, new_tokens)
+            if rt.admit_routes is not None:
+                experts, rows = rt.admit_routes
+                sp.set(experts=experts, rows=rows)
+            return slot
 
     def decode_tick(self, sched=None):
         """One decode step for every in-flight slot → {slot: new token}.
@@ -444,14 +452,19 @@ class ServeEngine:
         fused-backend ``MappingFabric``, or ``(avg, exec_times, fabric,
         event)`` with the mapping event's number for the decision's spans;
         the tick also makes that mapping decision and returns ``(tokens,
-        decision)`` (see ``PagedRuntime.decode_tick``)."""
+        decision)`` (see ``PagedRuntime.decode_tick``).  With dropless MoE
+        layers a traced tick's span carries ``experts``, the distinct
+        experts its active lanes routed to, summed over the layers."""
         rt = self._require_paged()
         tr = self.tracer
         if tr is None:
             return rt.decode_tick(sched)
         with tr.span("engine.decode_tick", active=len(rt.active_slots()),
-                     fused=sched is not None):
-            return rt.decode_tick(sched)
+                     fused=sched is not None) as sp:
+            out = rt.decode_tick(sched)
+            if rt.tick_experts is not None:
+                sp.set(experts=rt.tick_experts)
+            return out
 
     def finished_slots(self) -> list[int]:
         """Slots whose generation completed and await :meth:`retire`."""

@@ -59,9 +59,22 @@ the device counters accumulate when the fabric has them, and one
 device-to-host copy brings back ``pack_tick_outputs(tokens, decision)``;
 ``fabric.commit_tick_decision`` adopts the decision lanes.
 
-With MoE layers, row invariance holds while no token can be dropped: at 4
-lanes or fewer (``models/moe.py``).  Above that a lane's tokens can depend
-on its batch-mates' routing, in this runtime as in the reference's.
+With capacity-dispatched MoE layers, row invariance holds while no token
+can be dropped: at 4 lanes or fewer (``models/moe.py``).  Above that a
+lane's tokens can depend on its batch-mates' routing, in this runtime as in
+the reference's.  Dropless MoE layers (``moe.capacity_factor`` None) drop
+nothing at any lane count: there a lane's logits do not depend on its
+batch-mates, bitwise for the row-by-row expert product (the CPU, float32)
+and the card's grouped GEMM alike (``models/moe.py``; PERF.md, PR 28).
+
+**Routed experts.**  With dropless MoE layers a tick also counts the
+distinct experts its active lanes routed to, summed over the layers
+(``models/moe.py`` ``distinct_experts``), on the device inside the tick's
+work: the count rides after the tokens in the tick's one device-to-host
+copy (``tokens | count | decision``) and is ``tick_experts``.  An
+admission's first-token copy carries its prefill's distinct experts the
+same way (``admit_routes``, with its routed rows).  Other models count
+nothing and their copies are as before.
 
 **The graphed tick.**  A meshless engine on the card replays its tick's
 device work (gather, ``decode_step``, scatter, argmax) as one CUDA graph
@@ -85,9 +98,10 @@ host blocks there until the device has finished the tick) and
 ``tick.tokens`` (the host bookkeeping after it); a graphed tick has one
 ``tick.replay`` in place of gather, step and scatter (and ``tick.capture``
 on its first tick), and every tick a ``tick.graph`` counter of the
-runtime's ``tick_graph`` counts.  A fused tick adds its decision's
-``map.inputs`` (staging and upload), ``map.launch`` (kernel, counters,
-pack) and ``map.commit``.  An admission is ``admit.prefill``
+runtime's ``tick_graph`` counts (and, with dropless MoE layers, a
+``moe.experts`` counter of ``tick_experts``).  A fused tick adds its
+decision's ``map.inputs`` (staging and upload), ``map.launch`` (kernel,
+counters, pack) and ``map.commit``.  An admission is ``admit.prefill``
 (with the first token's argmax), ``admit.write`` and ``admit.wait`` (the
 first token's D2H).  These are host spans: issue against wait, not device
 time.  A copy from pageable host memory waits for the stream, so
@@ -135,6 +149,8 @@ from repro_torch.dist.sharding import (mesh_root, named, pad_caches,
 from repro_torch.kernels import decision_hw, pack_tick_outputs
 from repro_torch.kernels.fused_decision import unpack_decision
 from repro_torch.models.model import cache_specs
+from repro_torch.models.moe import (distinct_experts, dropless,
+                                    recording_routes)
 from repro_torch.obs.device import accumulate_counters
 from repro_torch.obs.trace import NULL_SPAN
 
@@ -336,6 +352,12 @@ class PagedRuntime:
                              num_pages=num_pages, device=engine.device)
         self.slots: dict[int, _Slot] = {}
         self.tick_graph = {"captures": 0, "replays": 0, "eager": 0}
+        # the routed-expert counts that ride in the last tick's and
+        # admission's copy (the module docstring); None where the model
+        # counts none
+        self._routed = dropless(engine.cfg)
+        self.tick_experts: int | None = None
+        self.admit_routes: tuple[int, int] | None = None
         self._bind()
 
     def _bind(self) -> None:
@@ -369,6 +391,7 @@ class PagedRuntime:
         generated token is the prefill logits' argmax, as the dense
         ``generate`` computes it.
         """
+        self.admit_routes = None
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         total = len(prompt) + int(new_tokens)
         if total > self.pool.max_len:
@@ -385,11 +408,15 @@ class PagedRuntime:
             slot, pages = self.pool.reserve(total)
         else:
             with eng._ctx():
-                with phase_span(tr, "admit.prefill"):
+                with phase_span(tr, "admit.prefill"), \
+                        recording_routes() as routes:
                     logits, dense = eng._prefill(
                         torch.from_numpy(prompt[None]).to(eng.device))
                     first = gathered(logits)[0].argmax().reshape(1).to(
                         torch.int32)
+                    if self._routed:         # + the distinct experts
+                        first = torch.cat([first, distinct_experts(
+                            routes, None, eng.cfg.moe.num_experts).view(1)])
                 with phase_span(tr, "admit.write"):
                     slot, pages = self.pool.reserve(total)
                     pp, ps = self.pool.pages_per_slot, self.pool.page_size
@@ -409,7 +436,12 @@ class PagedRuntime:
                         local_call(lambda p, d: write(p, d, name),
                                    (pool, dense[name]), (spec, spec), None)
         with phase_span(tr, "admit.wait"):
-            first = int(eng._publish(first, (1,), torch.int32)[0])
+            host = eng._publish(first, (2 if self._routed else 1,),
+                                torch.int32).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the first token's one D2H
+        first = int(host[0])
+        if self._routed:
+            rows = len(prompt) * eng.cfg.moe.top_k * len(routes)
+            self.admit_routes = (int(host[1]), rows)
         self.slots[slot] = _Slot(prompt=prompt, new_tokens=int(new_tokens),
                                  pages=pages, tokens=[first])
         return slot
@@ -523,6 +555,7 @@ class PagedRuntime:
         one device-to-host copy.  A fourth element, the event's number,
         goes on the decision's ``map.*`` spans.
         """
+        self.tick_experts = None
         active = self.active_slots()
         if not active:
             return {} if sched is None else ({}, None)
@@ -567,17 +600,22 @@ class PagedRuntime:
                         # The tick's one device→host copy: tokens and
                         # decision.
                         buf = pack_tick_outputs(toks, res)
-        width = lanes + (0 if sched is None else 4 * len(a_p) + len(avail))
+        head = lanes + (1 if self._routed else 0)   # tokens (and the count)
+        width = head + (0 if sched is None else 4 * len(a_p) + len(avail))
         with phase_span(tr, "tick.wait"):
             host = eng._publish(buf, (width,), torch.int32).cpu().numpy()  # repro: noqa[host-sync-in-hot-path] the tick's one packed D2H
         nxt = host[:lanes]
+        if self._routed:
+            self.tick_experts = int(host[lanes])
+            if tr is not None:
+                tr.counter("moe.experts", experts=self.tick_experts)
         decision = None
         if sched is not None:
             with phase_span(tr, "map.commit", event):
                 if not eng._member:
                     # adopt the slice's decision: its new registers ride in
                     # the buffer, bit for bit
-                    _, assignment, _, _, new = unpack_decision(host[lanes:],
+                    _, assignment, _, _, new = unpack_decision(host[head:],
                                                                len(avail))
                     avail.copy_(torch.from_numpy(new).to(avail.device))
                     if counters is not None:
@@ -589,7 +627,7 @@ class PagedRuntime:
                     res_avail = avail
                 else:
                     res_avail = res.new_avail
-                decision = fab.commit_tick_decision(len(avg), host[lanes:],
+                decision = fab.commit_tick_decision(len(avg), host[head:],
                                                     res_avail, counters)
         with phase_span(tr, "tick.tokens"):
             out = {}
@@ -602,8 +640,10 @@ class PagedRuntime:
     def _tick(self, ints: torch.Tensor) -> torch.Tensor:
         """The decode step of a tick from its uploaded int32 inputs: gather
         pages → dense view → ``decode_step`` with per-lane positions →
-        scatter the written token and state rows → the (lanes,) argmax.
-        The body a tick graph captures; run eagerly, its phases are spans."""
+        scatter the written token and state rows → the (lanes,) argmax,
+        followed by the active lanes' distinct routed experts where the
+        model has dropless MoE layers.  The body a tick graph captures; run
+        eagerly, its phases are spans."""
         eng = self.engine
         tr = None if self._graphed else eng.tracer
         lanes = eng.lanes
@@ -623,7 +663,7 @@ class PagedRuntime:
             dense = {name: local_call(lambda p: gather(p, name), (pool,),
                                       (self._specs[name],), self._specs[name])
                      for name, pool in self.pool.pools.items()}
-        with phase_span(tr, "tick.step"):
+        with phase_span(tr, "tick.step"), recording_routes() as routes:
             logits, dense = eng._decode(dense, tok, pos)
         with phase_span(tr, "tick.scatter"):
             rows = torch.arange(lanes, device=eng.device)
@@ -641,7 +681,12 @@ class PagedRuntime:
                 spec = self._specs[name]
                 local_call(lambda p, d: scatter(p, d, name),
                            (pool, dense[name]), (spec, spec), None)
-            return gathered(logits).argmax(dim=-1).to(torch.int32)
+            toks = gathered(logits).argmax(dim=-1).to(torch.int32)
+            if not self._routed:
+                return toks
+            live = slot_ids != self.pool.scratch_slot
+            return torch.cat([toks, distinct_experts(
+                routes, live, eng.cfg.moe.num_experts).view(1)])
 
     def retire(self, slot: int) -> np.ndarray:
         """Free the slot's pages and return the full (S0+new_tokens,) ids."""
