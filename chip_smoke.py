@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE] [--seed N]
 
-Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+Builds the port's five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 one process per source, all at once), then runs these phases and fails on
 the first disagreement:
 
@@ -44,6 +44,13 @@ the first disagreement:
   timeline, each with ``make_policy_fabric("cuda")`` and ``("fused")`` on
   the card, against the same run with the float32 plain path (``torch`` on
   the CPU): identical ``ServeResult``;
+* paged-attention — ``kernels.paged_decode_attention`` against its plain
+  version (the pages gathered, ``decode_attention`` in float32) at the GQA
+  configurations' widths (deepseek-7b, gemma2-9b's soft cap and local
+  window, yi-34b's G of 7, float32), a lane bitwise whatever its
+  batch-mates, contiguous == paged, a graph's replay == the eager launch;
+  then timed at deepseek-7b's cell shapes beside its bytes bound and the
+  plain gather + float32 einsums;
 * serve — deepseek-7b at its published widths and depth (30 layers,
   d_model 4096, vocab 102400, bf16, random weights from a seeded
   generator on the card) shared by three replicas (speeds 1.0 / 0.7 / 1.4)
@@ -54,7 +61,9 @@ the first disagreement:
   ``generate`` on the card bitwise, every in-tick decision the plain
   ``decision_ref`` on CPU copies of its staged operands, the
   ``fused_decision`` launches the decision ticks plus the host events, and
-  the pages allocated those freed.  Then the decode tick (plain and
+  the pages allocated those freed; request 0, teacher-forced, within
+  ``PLAIN_LOGIT_SHARE`` of the engine under ``plain_decode_attention``
+  (:func:`check_plain_attention`).  Then the decode tick (plain and
   carrying a decision), the decision kernel, a prefill and a one-lane
   tick are timed beside the tick's bytes bound;
 * mamba — falcon-mamba-7b at its published widths and depth (64 Mamba
@@ -155,7 +164,8 @@ the first disagreement:
   Σe/n.  Step times and the reductions' alone are printed.
 
 The fabric, runtime, queue-event, serving, the serve runs, dist-serve and
-chaos are the main path of the four kernels: the kernels' launch counters are zeroed just before each and read
+chaos are the main path of the four event kernels, the serve runs of GQA
+models that of the paged decode-attention kernel: the kernels' launch counters are zeroed just before each and read
 just after, and each kernel must have launched on its path.  Then each kernel is timed
 with CUDA events at the fabric-batched shape (B = 256, D = 2048, P = 4)
 and at the main path's one-event shapes (D = 256, 223 real slots in the
@@ -894,6 +904,168 @@ def phase_timing(torch, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: paged decode attention (the decode tick's K / V read in place)
+# ---------------------------------------------------------------------------
+
+PAGED_LANES = 8                    # the benchmark's lanes a replica
+# (name, H, KV, hd, dtype, page size, max_len, soft cap, window): the
+# configurations' GQA widths, gemma2's soft cap and local window (its
+# max_len past the window), a G of 7 (yi-34b), float32, a smoke width
+PAGED_CASES = (
+    ("deepseek-7b", 32, 32, 128, "bfloat16", 16, 2048, None, None),
+    ("gemma2-9b-global", 16, 8, 256, "bfloat16", 16, 4608, 50.0, None),
+    ("gemma2-9b-local", 16, 8, 256, "bfloat16", 16, 4608, 50.0, 4096),
+    ("yi-34b", 56, 8, 128, "bfloat16", 16, 2048, None, None),
+    ("phi3-f32", 40, 10, 128, "float32", 16, 1024, None, None),
+    ("smoke-f32", 7, 1, 8, "float32", 8, 64, None, None),
+)
+# The timed shapes: deepseek-7b's cells (long-context, positions 512-2047
+# of 2048; the burst, 8-63 of 128), 8 lanes a layer.
+PAGED_TIMED = (("long-context", 2048, 512, 2047), ("burst", 128, 8, 63))
+
+
+def paged_operands(torch, gen, H, KV, hd, dt, ps, max_len, pos):
+    """Random q and page pools for ``len(pos)`` lanes, each lane's pages a
+    random permutation of the pool's (the last page the scratch page), lane
+    0 a scratch lane when ``pos[0] == 0``."""
+    lanes, pp = len(pos), max_len // ps
+    pages = lanes * pp + 1
+    q = torch.randn(lanes, H, hd, generator=gen, device=DEVICE).to(dt)
+    k = torch.randn(pages, ps, KV, hd, generator=gen, device=DEVICE).to(dt)
+    v = torch.randn(pages, ps, KV, hd, generator=gen, device=DEVICE).to(dt)
+    perm = torch.randperm(pages - 1, generator=gen, device=DEVICE)
+    table = perm.view(lanes, pp).to(torch.int32)
+    if pos[0] == 0:
+        table[0] = pages - 1
+    pos = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    return q, k, v, table, pos
+
+
+def paged_bytes(pos, KV: int, hd: int, esize: int, window, H: int,
+                pp: int) -> int:
+    """The least bytes of one call: each lane's live K and V rows once, its
+    query, output, position and page-table row."""
+    live = sum(p + 1 if window is None else min(p + 1, window) for p in pos)
+    return (2 * live * KV * hd * esize + 2 * len(pos) * H * hd * esize
+            + len(pos) * (pp + 1) * 4)
+
+
+def phase_paged_attention(torch, seed: int, card: str) -> dict:
+    """``kernels.paged_decode_attention`` on the card against its plain
+    version (the pages gathered, ``decode_attention`` in float32) at the
+    configurations' widths, then timed at deepseek-7b's cell shapes beside
+    its bytes bound and the plain path (a layer's gather and float32
+    einsums, what the tick ran before).
+
+    Bound: ``paged_attention.tolerance``, element by element (stated in
+    its docstring before any run: two spacings of the output's dtype at the
+    element's size, plus the float32 sums' ``(live slots + hd) · 2^-23 ·
+    Σ p|v|``).  The kernel given the operands of each of
+    ``paged_attention.planted_faults`` must lie outside it.  Bitwise: a
+    lane's output whatever its batch-mates (the lanes rolled, and the lane
+    alone), the contiguous cache against the same values in pages, and a
+    CUDA graph's replay against the eager launch."""
+    from repro_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = {"checks": {}, "timing": {}}
+    for name, H, KV, hd, dtype, ps, max_len, cap, window in PAGED_CASES:
+        dt = getattr(torch, dtype)
+        edge = min(pa.CHUNK, max_len // 2)     # a chunk's last and next slot
+        pos = [0, max_len - 1, edge - 1, edge,
+               *rng.integers(0, max_len, PAGED_LANES - 4).tolist()]
+        q, k, v, table, p = paged_operands(torch, gen, H, KV, hd, dt, ps,
+                                           max_len, pos)
+        kw = dict(scale=hd ** -0.5, attn_cap=cap, window=window)
+        got = pa.paged_decode_attention(q, k, v, table, p, **kw)
+        torch.cuda.synchronize()
+        want = pa.paged_decode_attention_ref(q, k, v, table, p, **kw).float()
+        bound = pa.tolerance(q, k, v, table, p, **kw)
+        err = max_abs_err(got.float(), want)
+        ratio = float(((got.float() - want).abs() / bound).max())
+        require(bool(torch.isfinite(got.float()).all()),
+                f"paged attention ({name}): non-finite output")
+        require(ratio <= 1.0, f"paged attention ({name}): {ratio:.6f} of "
+                              f"the bound from the plain version")
+        faults = {}
+        for fault, fpos, fkw in pa.planted_faults(p, max_len, kw):
+            f = pa.paged_decode_attention(q, k, v, table, fpos, **fkw)
+            faults[fault] = float(((f.float() - want).abs() / bound).max())
+            require(faults[fault] > 1.0, f"paged attention ({name}): the "
+                    f"planted fault {fault} lies within the bound")
+        rolled = pa.paged_decode_attention(
+            torch.cat([q[:1], q[1:].roll(1, 0)]), k, v,
+            torch.cat([table[:1], table[1:].roll(1, 0)]),
+            torch.cat([p[:1], p[1:].roll(1, 0)]), **kw)
+        alone = pa.paged_decode_attention(q[1:2], k, v, table[1:2], p[1:2],
+                                          **kw)
+        require(bits_equal(rolled[0], got[0]) and
+                bits_equal(rolled[2:], got[1:-1]) and
+                bits_equal(alone, got[1:2]),
+                f"paged attention ({name}): a lane's output moved with its "
+                f"batch-mates")
+        dense_k = k[table.long()].flatten(1, 2).contiguous()
+        dense_v = v[table.long()].flatten(1, 2).contiguous()
+        dense = pa.paged_decode_attention(q, dense_k, dense_v, None, p, **kw)
+        require(bits_equal(dense, got), f"paged attention ({name}): the "
+                f"contiguous cache differs from the same values in pages")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = pa.paged_decode_attention(q, k, v, table, p, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        require(bits_equal(replayed, got), f"paged attention ({name}): a "
+                f"graph's replay differs from the eager launch")
+        out["checks"][name] = {"max_abs_err": err, "bound_share": ratio,
+                               "faults_bound_share": faults,
+                               "positions": pos}
+        log(f"[paged-attn] {name} (H {H}, KV {KV}, hd {hd}, {dtype}, pages "
+            f"of {ps}, max_len {max_len}, cap {cap}, window {window}): "
+            f"{err:.6e} from the plain version, at most {ratio:.6f} of the "
+            f"element's bound; planted faults (largest share of the bound) "
+            f"{ {f: round(r, 3) for f, r in faults.items()} }; a lane "
+            f"bitwise whatever its batch-mates, contiguous == paged, graph "
+            f"== eager")
+        del q, k, v, dense_k, dense_v, graph
+    free_card(torch)
+
+    H, KV, hd, ps = 32, 32, 128, 16
+    for shape, max_len, lo, hi in PAGED_TIMED:
+        pos = rng.integers(lo, hi + 1, PAGED_LANES).tolist()
+        q, k, v, table, p = paged_operands(torch, gen, H, KV, hd,
+                                           torch.bfloat16, ps, max_len, pos)
+        kw = dict(scale=hd ** -0.5, attn_cap=None, window=None)
+        nbytes = paged_bytes(pos, KV, hd, 2, None, H, max_len // ps)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def kernel():
+            pa.paged_decode_attention(q, k, v, table, p, **kw)
+
+        def plain():
+            pa.paged_decode_attention_ref(q, k, v, table, p, **kw)
+
+        ms = cuda_time_ms(torch, kernel, iters=50)
+        g_ms = graph_time_ms(torch, kernel)
+        plain_ms = cuda_time_ms(torch, plain, iters=10)
+        plain_g_ms = graph_time_ms(torch, plain, launches=5)
+        t = {"positions": pos, "bytes": nbytes, "bound_ms": b_ms,
+             "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+             "plain_graph_ms": plain_g_ms,
+             "bound_share": b_ms / g_ms}
+        out["timing"][shape] = t
+        log(f"[paged-attn] {card} | {shape}: {PAGED_LANES} lanes, H {H}, "
+            f"hd {hd}, bf16, positions {lo}-{hi} of {max_len}: kernel "
+            f"{ms:.6f} ms ({g_ms:.6f} ms from a graph), bound {b_ms:.6f} "
+            f"ms ({nbytes} bytes at 3.35 TB/s; {100 * b_ms / g_ms:.2f}% of "
+            f"it), plain gather + f32 einsums {plain_ms:.6f} ms "
+            f"({plain_g_ms:.6f} ms from a graph)")
+        del q, k, v
+    free_card(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: the serving path at full width (main path, part 4)
 # ---------------------------------------------------------------------------
 
@@ -1108,7 +1280,101 @@ def build_model(torch, cfg, seed: int, tag: str):
     return params, out
 
 
-def run_served(torch, K, cfg, params, requests, tag: str):
+# The largest gap, in units of the step's largest |logit|, allowed between
+# a served request's logits through the card's decode attention kernel and
+# through its plain version, teacher-forced (readings in PERF.md §6): 1.6x
+# the largest of 16 readings at full width on an H100 (0.0190: deepseek-7b
+# and yi-34b's widths, two weight seeds, four requests each; the two paths
+# round their attention outputs one bf16 spacing apart, through every
+# layer).
+PLAIN_LOGIT_SHARE = 0.03
+
+
+def teacher_forced_logits(torch, eng, prompt, served):
+    """``eng``'s float32 logits along ``served`` (prompt then new tokens):
+    its prefill's, then a decode step's for each new token but the last,
+    fed that token, at the engine's lane width (lane 0 the request)."""
+    with eng._ctx():
+        logits, caches = eng._start_local(prompt[None, :])
+        tok = torch.zeros((eng.lanes, 1), dtype=torch.int32, device=DEVICE)
+        pos = torch.zeros(eng.lanes, dtype=torch.int32, device=DEVICE)
+        out = [logits[0].float()]
+        for i, t in enumerate(served[len(prompt):-1]):
+            tok[0, 0], pos[0] = int(t), len(prompt) + i
+            logits, caches = eng._decode(caches, tok, pos)
+            out.append(logits[0].float())
+        return torch.stack(out)
+
+
+def check_plain_attention(torch, eng, prompt, served, tag: str) -> dict:
+    """A served request held against the same engine whose GQA decode runs
+    plain ``decode_attention`` (``plain_decode_attention``), teacher-forced
+    along the served tokens: the kernel's logits give the served tokens;
+    their largest gap from the plain path's, as a share of the step's
+    largest |logit|, is at most :data:`PLAIN_LOGIT_SHARE`, and the plain
+    path gives the same token wherever its top-two margin exceeds twice
+    the gap.  Two planted faults of the plain path: every row's last slot
+    one short of its position (its own new token left out), which must lie
+    beyond the limit, and one past it (an empty slot read), reported only:
+    at the model's level that fault moves the logits about as far as the
+    kernel's rounding does, so the kernel's own check catches it."""
+    import repro_torch.models.attention as attn
+
+    kern = teacher_forced_logits(torch, eng, prompt, served)
+    faulted = {}
+    with attn.plain_decode_attention():
+        plain = teacher_forced_logits(torch, eng, prompt, served)
+        exact = attn.decode_attention
+        for fault, shift in (("pos-1", -1), ("pos+1", 1)):
+            def shifted(q, k, v, pos, shift=shift, **kw):
+                rows = torch.as_tensor(pos, device=q.device).reshape(-1)
+                return exact(q, k, v, (rows + shift).clamp(
+                    0, k.shape[1] - 1), **kw)
+
+            attn.decode_attention = shifted
+            try:
+                faulted[fault] = teacher_forced_logits(torch, eng, prompt,
+                                                       served)
+            finally:
+                attn.decode_attention = exact
+    scale = kern.abs().amax(dim=-1)
+    share = float(((kern - plain).abs().amax(dim=-1) / scale).max())
+    fault_share = {f: float(((kern - x).abs().amax(dim=-1) / scale).max())
+                   for f, x in faulted.items()}
+    want = torch.as_tensor(served[len(prompt):].astype(np.int64),
+                           device=DEVICE)
+    require(bool((kern.argmax(-1) == want).all()),
+            f"{tag}: the teacher-forced kernel steps differ from the served "
+            f"tokens")
+    top2 = plain.topk(2, dim=-1).values
+    gap = (kern - plain).abs().amax(dim=-1)
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * gap
+    agree = plain.argmax(-1) == want
+    require(bool(agree[clear].all()), f"{tag}: the plain decode attention "
+            f"gives another token where its margin is clear of the gap")
+    if PLAIN_LOGIT_SHARE is not None:
+        require(share <= PLAIN_LOGIT_SHARE, f"{tag}: logits {share:.6e} of "
+                f"the largest from the plain path's, limit "
+                f"{PLAIN_LOGIT_SHARE}")
+        require(fault_share["pos-1"] > PLAIN_LOGIT_SHARE, f"{tag}: the "
+                f"planted pos-1 fault moves the logits only "
+                f"{fault_share['pos-1']:.6e}")
+    rec = {"steps": len(want), "share": share, "fault_share": fault_share,
+           "max_abs_gap": float(gap.max()),
+           "largest_logit": float(scale.max()),
+           "tokens_agree": int(agree.sum()), "clear_steps": int(clear.sum())}
+    log(f"[{tag}] a served request ({len(prompt)}-token prompt, "
+        f"{len(want)} tokens) against plain decode_attention, "
+        f"teacher-forced: logits {share:.6e} of the step's largest |logit| "
+        f"(largest gap {rec['max_abs_gap']:.6e}, largest |logit| "
+        f"{rec['largest_logit']:.6e}), limit {PLAIN_LOGIT_SHARE}; planted "
+        f"faults {fault_share}; tokens agree {rec['tokens_agree']} of "
+        f"{len(want)} ({rec['clear_steps']} steps with a clear margin)")
+    return rec
+
+
+def run_served(torch, K, cfg, params, requests, tag: str,
+               plain_check: bool = False):
     """Three replicas sharing ``params`` (speeds 1.0 / 0.7 / 1.4) serve
     ``requests`` through ``HeftFrontEnd.run_continuous(fused=True)`` on a
     ``MappingFabric(3, backend="fused", device_counters=True)``, four lanes,
@@ -1116,7 +1382,11 @@ def run_served(torch, K, cfg, params, requests, tag: str):
     before the run and read just after.  Checks: every request's tokens
     bitwise the dense ``generate``, every in-tick decision bitwise the plain
     version, ``fused_decision`` launched once a decision tick and once a
-    host event, pages and state slots allocated == freed.  Returns (record,
+    host event, pages and state slots allocated == freed; with
+    ``plain_check`` (deepseek-7b at full depth, where
+    :data:`PLAIN_LOGIT_SHARE` was set: a model with few attention layers,
+    such as a cut Jamba, moves its logits too little for that limit),
+    :func:`check_plain_attention` on request 0.  Returns (record,
     fleet, fabric)."""
     from repro_torch.sched_integration import MappingFabric
     from repro_torch.serve import HeftFrontEnd, ReplicaHandle, ServeEngine
@@ -1151,6 +1421,10 @@ def run_served(torch, K, cfg, params, requests, tag: str):
     require(stats["allocated"] == stats["freed"] > 0,
             f"{tag}: {stats['allocated']} pages allocated, "
             f"{stats['freed']} freed")
+    from repro_torch.models.model import cache_specs
+    if DEVICE == "cuda" and {"k", "v"} <= cache_specs(cfg, 1, 1).keys():
+        require(counts["paged_decode_attention"] > 0,
+                f"{tag}: the paged decode-attention kernel never launched")
     require(stats["slots_allocated"] == stats["slots_freed"] == len(requests),
             f"{tag}: {stats['slots_allocated']} state slots allocated, "
             f"{stats['slots_freed']} freed, {len(requests)} requests")
@@ -1160,6 +1434,10 @@ def run_served(torch, K, cfg, params, requests, tag: str):
         require(np.array_equal(outs[i], dense),
                 f"{tag}: request {i} paged tokens differ from the dense "
                 f"generate on the card")
+    plain = None
+    if plain_check and DEVICE == "cuda":
+        plain = check_plain_attention(torch, fleet[0].engine, requests[0][0],
+                                      outs[0], tag)
     new = sum(nt for _, nt in requests)
     log(f"[{tag}] run_continuous: {len(requests)} requests (prompts "
         f"{[len(p) for p, _ in requests]}), {new} new tokens in {wall:.3f} s "
@@ -1177,7 +1455,8 @@ def run_served(torch, K, cfg, params, requests, tag: str):
                   launches=counts, latency_s=stats["latency_s"],
                   fused_decisions=stats["fused_decisions"],
                   host_decisions=stats["host_decisions"],
-                  pages=stats["allocated"], slots=stats["slots_allocated"])
+                  pages=stats["allocated"], slots=stats["slots_allocated"],
+                  plain_attention=plain)
     return record, fleet, fab
 
 
@@ -1193,7 +1472,8 @@ def phase_serve(torch, K, seed: int):
     params, out = build_model(torch, cfg, seed, "serve")
     rng = np.random.default_rng(seed)
     requests = serve_requests(rng, cfg.vocab_size)
-    record, fleet, fab = run_served(torch, K, cfg, params, requests, "serve")
+    record, fleet, fab = run_served(torch, K, cfg, params, requests, "serve",
+                                    plain_check=True)
     out.update(record)
     t = time_serve_tick(torch, fleet[0].engine, fab, rng, cfg, seed,
                         prefill_len=47)
@@ -1838,9 +2118,13 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
     """The recorder around one real ``decode_step`` of ``cfg`` on the card
     at 4 lanes and a 2048-token cache counts the FLOPs, bytes and ops it
     counts on ``meta`` stand-ins at those shapes; the step is timed beside
-    its counted bytes at 3.35 TB/s."""
+    its counted bytes at 3.35 TB/s.  Both run under
+    ``plain_decode_attention``: the plain path, the one the ``meta``
+    stand-ins take (the card's decode attention kernel is one launch the
+    recorder does not see), not the kernel the server runs."""
     from repro_torch.launch.cost_analysis import CostRecorder, summarize_step
     from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.attention import plain_decode_attention
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.model import decode_step, init_cache
 
@@ -1852,7 +2136,7 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
                            device=DEVICE, dtype=torch.int32)
     pos = torch.tensor(S // 2, dtype=torch.int32, device=DEVICE)
     args = (params, caches, tokens, pos)
-    with torch.no_grad(), CostRecorder() as rec:
+    with torch.no_grad(), plain_decode_attention(), CostRecorder() as rec:
         logits, _ = decode_step(*args, cfg)
     real = summarize_step(rec.records, args, (logits, caches))
     meta = trace_cell(cfg, ShapeConfig("card", "decode", S, B))
@@ -1864,7 +2148,7 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
             "the card's decode step gave non-finite logits")
 
     def step():
-        with torch.no_grad():
+        with torch.no_grad(), plain_decode_attention():
             decode_step(*args, cfg)
 
     ms = cuda_time_ms(torch, step, iters=5)
@@ -1873,7 +2157,8 @@ def card_decode_counts(torch, cfg, seed: int, card: str) -> dict:
         f"{S}-token cache: {real['ops']} ops, "
         f"{real['flops_per_device']:.6e} FLOPs, "
         f"{real['bytes_accessed_per_device']:.6e} bytes counted on the card "
-        f"== on meta stand-ins; {ms:.6f} ms a step (CUDA events) beside "
+        f"== on meta stand-ins; {ms:.6f} ms a step on the plain decode "
+        f"attention path (CUDA events) beside "
         f"{bytes_ms:.6f} ms for its counted bytes at 3.35 TB/s")
     return {"lanes": B, "cache": S, "flops": real["flops_per_device"],
             "bytes": real["bytes_accessed_per_device"], "ops": real["ops"],
@@ -2901,6 +3186,11 @@ def main() -> int:
     walls["serving"] = time.perf_counter() - t0
     log(f"[serving] wall {walls['serving']:.3f} s")
 
+    t0 = time.perf_counter()
+    paged = phase_paged_attention(torch, args.seed, card)
+    walls["paged_attention"] = time.perf_counter() - t0
+    log(f"[paged-attn] wall {walls['paged_attention']:.3f} s")
+
     launches = {}
     for name in ("heft_fused", "fused_decision"):
         per_phase = ([fabric_counts[name]]
@@ -2923,6 +3213,8 @@ def main() -> int:
     walls["serve"] = time.perf_counter() - t0
     log(f"[serve] wall {walls['serve']:.3f} s")
     launches["fused_decision"] += serve["launches"]["fused_decision"]
+    launches["paged_decode_attention"] = \
+        serve["launches"]["paged_decode_attention"]
 
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -3017,6 +3309,20 @@ def main() -> int:
             "one_event_graph_ms": t["one_event_graph_ms"],
         }
         kernels.append(entry)
+    t = paged["timing"]["long-context"]
+    kernels.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+        "replaces": None, "launches": launches["paged_decode_attention"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in paged["checks"].values()),
+        "bound_share": max(c["bound_share"]
+                           for c in paged["checks"].values()),
+        "ms": t["ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "library_graph_ms": None,
+        "shape": {"lanes": PAGED_LANES, "H": 32, "hd": 128,
+                  "positions": t["positions"]}})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -3028,7 +3334,7 @@ def main() -> int:
             "serve": serve, "serve_mamba": mamba, "serve_cut": cut,
             "train": train, "tp_train": tp_train, "dist_serve": dist_serve,
             "dist_train": dist_train, "chaos": chaos, "dryrun": dryrun,
-            "examples": examples,
+            "examples": examples, "paged_attention": paged,
             "event_shapes": timing["event_shapes"],
             "queue_shapes": timing["queue_shapes"]}, indent=1))
     import torch.distributed as dist

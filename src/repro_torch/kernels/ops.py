@@ -1,5 +1,5 @@
-"""Public wrappers for the HEFT_RT dataplane kernels, the kernels' launch
-counters and their build.
+"""Public wrappers for the HEFT_RT dataplane kernels and the paged
+decode-attention kernel, the kernels' launch counters and their build.
 
 Counterpart of ``repro.kernels.ops``.
 
@@ -17,6 +17,7 @@ Public API
 ``eft_select(exec_sorted, avail)``            — EFT assignment over a sorted queue
 ``heft_rt_hw(avg, exec, avail)``             — fused mapping event
 ``decision_hw(avg, exec, avail, pe_mask)``    — mapping event with a PE mask
+``paged_decode_attention(q, k, v, table, pos)`` — decode attention read from the pages
 ``build_kernels()``                           — nvcc every kernel, in parallel
 ``launch_counts()`` / ``reset_launch_counts()`` — per-kernel launch counters
 """
@@ -33,8 +34,11 @@ from repro_torch.kernels import eft_select as _eft
 from repro_torch.kernels import fused_decision as _decision
 from repro_torch.kernels import heft_fused as _fused
 from repro_torch.kernels import oddeven_sort as _sort
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels.paged_attention import paged_decode_attention
 
-KERNELS = (_fused.KERNEL, _decision.KERNEL, _sort.KERNEL, _eft.KERNEL)
+KERNELS = (_fused.KERNEL, _decision.KERNEL, _sort.KERNEL, _eft.KERNEL,
+           _paged.KERNEL)
 
 
 def build_kernels() -> None:

@@ -7,7 +7,17 @@ Counterpart of ``repro.models.attention``.
   and inside it over the causally reachable key chunks only.  Local-window
   layers (Gemma-2) also lower-bound the key-chunk loop.
 * Decode attends one query against the whole cache, ``Smax`` slots, with a
-  scalar position or one position per row.
+  scalar position or one position per row.  On the card, GQA decode runs
+  ``kernels.paged_decode_attention`` (the hand-written kernel, which reads
+  each row's slots only up to its position) in place of
+  :func:`decode_attention`; on the CPU and on ``meta`` stand-ins it runs
+  :func:`decode_attention`, the kernel's plain version.  The cache's device
+  decides, nothing else (:func:`plain_decode_attention` excepted, the
+  yardstick the kernel is held against on the card).  A contiguous cache
+  reads as one page a row; given a :class:`PageTable` under the caches'
+  ``"pages"`` key (the paged tick's, ``serve/paging.py``), the caches are
+  the page pools themselves: the new token is written to its page and the
+  pages are read in place.
 * MLA (DeepSeek-V2) caches only the compressed latent (``kv_lora_rank`` +
   the RoPE dims).  Prefill expands it to per-head K / V and runs the
   chunked attention; decode folds ``w_uk`` into the query, attends in the
@@ -48,6 +58,7 @@ Without a policy every hint and ``local_call`` is an identity.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -58,12 +69,53 @@ from repro_torch.dist.hints import (checkpointed, current_policy, is_dtensor,
                                     local_call, reduce_over, shard_hint,
                                     shard_offset, split_over, whole_along)
 from repro_torch.dist.sharding import P, placements_for, spec_of
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_decode_attention_ref)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, apply_rope_yarn,
                                        dense_init, dtype_of, param, rms_norm,
                                        softcap, yarn_scales)
 
 NEG = -2.3e38  # practical -inf for f32 masking
+
+
+# The caches' key of a decode step's PageTable.
+PAGES = "pages"
+
+
+class PageTable(NamedTuple):
+    """A decode step's caches ``k`` / ``v`` are page pools (L, pages,
+    page_size, KV, hd): ``table`` (lanes, pages_per_lane) int32 holds the
+    lanes' page ids, ``rows`` (lanes,) int64 the pool row (``page *
+    page_size + slot``) each lane's new token goes to."""
+
+    table: torch.Tensor
+    rows: torch.Tensor
+
+
+_plain_decode = False
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Within it, GQA decode attention runs its plain version on every
+    device: :func:`decode_attention` (a paged step: the pages gathered,
+    then :func:`decode_attention`).  The yardstick the card's kernel is held
+    against, and the path a count of a step's torch ops on the card must
+    take to equal the count on ``meta`` stand-ins (the kernel is one launch
+    that torch does not see)."""
+    global _plain_decode
+    prev, _plain_decode = _plain_decode, True
+    try:
+        yield
+    finally:
+        _plain_decode = prev
+
+
+def _kernel_decodes(cache: torch.Tensor) -> bool:
+    """Whether GQA decode attention over ``cache`` runs the kernel: on the
+    card, outside :func:`plain_decode_attention`."""
+    return cache.device.type == "cuda" and not _plain_decode
 
 
 class CacheSpec(NamedTuple):
@@ -390,7 +442,12 @@ def gqa_block(
     if decode_pos is not None:
         if cache is None or S != 1:
             raise ValueError("decode takes one token a row and a cache")
-        out = _gqa_decode(q, k, v, cache["k"], cache["v"], decode_pos, kw)
+        pages = cache.get(PAGES)
+        if pages is not None:
+            out = _paged_decode(q, k, v, cache["k"], cache["v"], pages,
+                                decode_pos, kw)
+        else:
+            out = _gqa_decode(q, k, v, cache["k"], cache["v"], decode_pos, kw)
     else:
         # gathering K / V once here replaces a gather a key chunk
         k = shard_hint(k, "attn_kv")
@@ -413,6 +470,19 @@ def gqa_block(
     return y, cache
 
 
+def _paged_decode(q, k, v, k_pool, v_pool, pages: PageTable, pos, kw):
+    """One decode step's attention read from the page pools in place: each
+    lane's new K / V written to its pool row (``pages.rows``; scratch lanes
+    all write the scratch page), then the kernel over the lanes' pages up
+    to their positions (``pos``, int32 (lanes,)); off the card the pages
+    gathered and :func:`decode_attention`."""
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        pool.view(-1, *pool.shape[2:])[pages.rows] = new[:, 0].to(pool.dtype)
+    attend = (paged_decode_attention if _kernel_decodes(k_pool)
+              else paged_decode_attention_ref)
+    return attend(q[:, 0], k_pool, v_pool, pages.table, pos, **kw)[:, None]
+
+
 def _gqa_decode(q, k, v, ck, cv, pos, kw):
     """One decode step's attention in the cache's layout: q and the new
     K / V take the cache's batch and head split (one query position cannot
@@ -422,7 +492,8 @@ def _gqa_decode(q, k, v, ck, cv, pos, kw):
     slice; the slices' softmax partials are combined over the ranks
     (:func:`merge_partials`: one all-reduce max and two all-reduce sums of
     (B, H, 1)- and (B, H, d)-sized partials a layer, inside the core).
-    Unsplit, it is :func:`decode_attention` on local heads."""
+    Unsplit, it is :func:`decode_attention` on local heads, on the card
+    ``paged_decode_attention`` over the cache as one page a row."""
     cspec = spec_of(ck)
     qspec = _whole_seq(cspec) if len(cspec) else P()
     seq = split_over(ck, 1)
@@ -430,7 +501,13 @@ def _gqa_decode(q, k, v, ck, cv, pos, kw):
         def core(q, k, v, ck, cv):
             _write_token(ck, k[:, 0], pos)
             _write_token(cv, v[:, 0], pos)
-            return decode_attention(q, ck, cv, pos, **kw)
+            if not _kernel_decodes(ck):
+                return decode_attention(q, ck, cv, pos, **kw)
+            lane_pos = torch.as_tensor(pos, dtype=torch.int32,
+                                       device=q.device)
+            lane_pos = lane_pos.reshape(-1).expand(q.shape[0]).contiguous()
+            return paged_decode_attention(q[:, 0], ck, cv, None, lane_pos,
+                                          **kw)[:, None]
     else:
         offset = shard_offset(ck, 1)
 

@@ -24,7 +24,9 @@ have that leaf: attention leaves (``k`` / ``v`` or MLA's ``ckv`` / ``kr``)
 over the attention layers, Mamba's ``conv`` / ``ssm`` over the Mamba
 layers, both in layer order.  Jamba's 32 layers give ``k`` / ``v`` a
 leading 4 and ``conv`` / ``ssm`` a leading 28; ``layer_plan`` gives each
-layer its index (``cache``) within its kind.
+layer its index (``cache``) within its kind.  A decode step's
+``attention.PageTable``, under the caches' ``"pages"`` key, goes to every
+attention layer with its leaves.
 """
 
 from __future__ import annotations
@@ -225,6 +227,8 @@ def apply_stack(
             names = (MAMBA_LEAVES if slot["kind"] == "mamba"
                      else attn_leaves(cfg))
             c = {name: caches[name][slot["cache"]] for name in names}
+            if slot["kind"] == "attn" and attn_mod.PAGES in caches:
+                c[attn_mod.PAGES] = caches[attn_mod.PAGES]
         kw = dict(positions=positions, cache=c, decode_pos=decode_pos,
                   differentiable=differentiable)
         if remat and caches is None and torch.is_grad_enabled():

@@ -18,7 +18,10 @@ Public contracts:
   dense fixed-shape cache: the *bitwise oracle* every other path is tested
   against.  Every decode step runs at the engine's ``lanes`` rows (a batch
   of fewer prompts is padded), as the paged tick does; see the row
-  invariance note in ``serve/paging.py``.  ``snapshot_caches`` /
+  invariance note in ``serve/paging.py``.  On the card its GQA decode
+  attention is the paged tick's kernel (``models.attention``: the cache's
+  device decides), over the cache as one page a lane, so paged and dense
+  stay bitwise there too, meshed or not.  ``snapshot_caches`` /
   ``restore_caches`` are the chaos tier's kill-and-recover unit.
 * **Paged path** (``start_paged`` → ``admit`` / ``decode_tick`` /
   ``finished_slots`` / ``retire``) — continuous batching through the

@@ -37,6 +37,20 @@ lane, scatters back the one token each lane wrote to its page and each
 lane's new state row to its slot, and takes the argmax on the device; the
 host receives the ``(lanes,)`` tokens in one copy.
 
+**K / V read in place.**  On the card (a meshless engine on a ``cuda``
+device, as for the graph below) a model that caches ``k`` / ``v`` skips
+their gather and scatter: the tick hands ``decode_step`` the pools
+themselves with the lanes' page table (``models.attention.PageTable``),
+each attention layer writes its new token to its page and
+``kernels.paged_decode_attention`` reads each lane's pages in place, up to
+its position.  The dense ``generate`` runs the same kernel on its
+contiguous cache (one page a lane), so the two stay bitwise equal.  State
+leaves and MLA's ``ckv`` / ``kr`` are gathered and scattered as before, and
+so are ``k`` / ``v`` on the CPU and on a mesh slice.  ``tick_kv`` counts
+the ``paged`` ticks, and holds the last tick's ``live_slots`` (its active
+lanes' positions + 1, summed) beside its ``slots`` (lanes x ``max_len``):
+their ratio is the share of the old gather the tick still reads.
+
 **Row invariance.**  Every decode step of an engine, paged or dense
 (``ServeEngine.generate``), runs at the engine's fixed lane count
 ``engine.lanes``, padded with scratch lanes.  So every decode matmul has
@@ -98,8 +112,9 @@ host blocks there until the device has finished the tick) and
 ``tick.tokens`` (the host bookkeeping after it); a graphed tick has one
 ``tick.replay`` in place of gather, step and scatter (and ``tick.capture``
 on its first tick), and every tick a ``tick.graph`` counter of the
-runtime's ``tick_graph`` counts (and, with dropless MoE layers, a
-``moe.experts`` counter of ``tick_experts``).  A fused tick adds its
+runtime's ``tick_graph`` counts, a ``tick.kv`` counter of its ``tick_kv``
+(and, with dropless MoE layers, a ``moe.experts`` counter of
+``tick_experts``).  A fused tick adds its
 decision's ``map.inputs`` (staging and upload), ``map.launch`` (kernel,
 counters, pack) and ``map.commit``.  An admission is ``admit.prefill``
 (with the first token's argmax), ``admit.write`` and ``admit.wait`` (the
@@ -148,6 +163,7 @@ from repro_torch.dist.sharding import (mesh_root, named, pad_caches,
                                        unpad_caches)
 from repro_torch.kernels import decision_hw, pack_tick_outputs
 from repro_torch.kernels.fused_decision import unpack_decision
+from repro_torch.models.attention import PAGES, PageTable
 from repro_torch.models.model import cache_specs
 from repro_torch.models.moe import (distinct_experts, dropless,
                                     recording_routes)
@@ -179,6 +195,8 @@ def _take_shape(pool, name: str, row) -> tuple:
 # Leaf classification by name, as the reference's.
 PAGED_LEAVES = frozenset({"k", "v", "ckv", "kr"})
 STATE_LEAVES = frozenset({"conv", "ssm"})
+# The leaves a tick on the card reads from the pages in place.
+KV_LEAVES = frozenset({"k", "v"})
 
 # Eager runs of a tick before its capture (lazy initialisation, such as a
 # stream's cuBLAS workspace, must not happen inside a capture).
@@ -352,6 +370,8 @@ class PagedRuntime:
                              num_pages=num_pages, device=engine.device)
         self.slots: dict[int, _Slot] = {}
         self.tick_graph = {"captures": 0, "replays": 0, "eager": 0}
+        self.tick_kv = {"paged": 0, "live_slots": 0,
+                        "slots": engine.lanes * engine.max_len}
         # the routed-expert counts that ride in the last tick's and
         # admission's copy (the module docstring); None where the model
         # counts none
@@ -363,10 +383,9 @@ class PagedRuntime:
     def _bind(self) -> None:
         """Place the pools for the engine's current mesh slice (``page_pspecs``
         layouts); unmeshed they stay plain tensors on its device.  Drops the
-        tick graph, and decides afresh whether ticks are graphed."""
+        tick graph, and decides afresh the tick's paths."""
         eng = self.engine
-        self._graphed = eng.mesh is None and eng.device.type == "cuda"
-        self._graph = None
+        self._set_paths(eng.mesh is None and eng.device.type == "cuda")
         if eng.mesh is None:
             self._specs = dict.fromkeys(self.pool.pools)
             return
@@ -374,6 +393,16 @@ class PagedRuntime:
         self.pool.pools = reshard_tree(
             pad_caches(self.pool.pools, eng.cfg, eng._m),
             named(eng.mesh, self._specs))
+
+    def _set_paths(self, on_card: bool) -> None:
+        """The tick's paths, from what the runtime observes: ``on_card`` (a
+        meshless engine on a ``cuda`` device) the tick is graphed and, where
+        the model caches ``k`` / ``v``, reads them from the pages in place.
+        Drops the tick graph.  (The CPU tests pass True to run those paths
+        on their plain versions.)"""
+        self._graphed = on_card
+        self._kv_in_place = on_card and KV_LEAVES <= self.pool.pools.keys()
+        self._graph = None
 
     def rebind(self) -> None:
         """Re-place the pools after ``ServeEngine.reshard`` (which brings
@@ -584,8 +613,12 @@ class PagedRuntime:
                 else:
                     toks = self._tick(ints)
                     self.tick_graph["eager"] += 1
+                self.tick_kv["paged"] += self._kv_in_place
+                self.tick_kv["live_slots"] = sum(
+                    self.slots[s].write_pos + 1 for s in active)
                 if tr is not None:
                     tr.counter("tick.graph", **self.tick_graph)
+                    tr.counter("tick.kv", **self.tick_kv)
                 if sched is None:
                     buf = toks
                 else:
@@ -642,16 +675,25 @@ class PagedRuntime:
         pages → dense view → ``decode_step`` with per-lane positions →
         scatter the written token and state rows → the (lanes,) argmax,
         followed by the active lanes' distinct routed experts where the
-        model has dropless MoE layers.  The body a tick graph captures; run
-        eagerly, its phases are spans."""
+        model has dropless MoE layers.  With ``k`` / ``v`` read in place
+        those two leaves are neither gathered nor scattered: ``decode_step``
+        gets their pools and the page table.  The body a tick graph
+        captures; run eagerly, its phases are spans."""
         eng = self.engine
         tr = None if self._graphed else eng.tracer
         lanes = eng.lanes
         pp, ps = self.pool.pages_per_slot, self.pool.page_size
-        table = ints[:lanes * pp].view(lanes, pp).long()
+        table32 = ints[:lanes * pp].view(lanes, pp)
+        table = table32.long()
         pos = ints[lanes * pp:lanes * (pp + 1)]
         tok = ints[lanes * (pp + 1):lanes * (pp + 2)].view(lanes, 1)
         slot_ids = ints[lanes * (pp + 2):].long()
+        rows = torch.arange(lanes, device=eng.device)
+        page = table[rows, (pos // ps).long()]
+        off = (pos % ps).long()
+        pools = self.pool.pools
+        moved = [name for name in pools
+                 if not (self._kv_in_place and name in KV_LEAVES)]
 
         def gather(pool, name):
             if name in STATE_LEAVES:
@@ -660,16 +702,15 @@ class PagedRuntime:
                                           *pool.shape[3:])
 
         with phase_span(tr, "tick.gather"):
-            dense = {name: local_call(lambda p: gather(p, name), (pool,),
-                                      (self._specs[name],), self._specs[name])
-                     for name, pool in self.pool.pools.items()}
+            dense = {name: local_call(lambda p: gather(p, name),
+                                      (pools[name],), (self._specs[name],),
+                                      self._specs[name]) for name in moved}
+            if self._kv_in_place:
+                dense.update(k=pools["k"], v=pools["v"])
+                dense[PAGES] = PageTable(table32, page * ps + off)
         with phase_span(tr, "tick.step"), recording_routes() as routes:
             logits, dense = eng._decode(dense, tok, pos)
         with phase_span(tr, "tick.scatter"):
-            rows = torch.arange(lanes, device=eng.device)
-            page = table[rows, (pos // ps).long()]
-            off = (pos % ps).long()
-
             def scatter(pool, d, name):
                 if name in STATE_LEAVES:
                     # scratch lanes all write the scratch slot: harmless
@@ -677,10 +718,10 @@ class PagedRuntime:
                 else:
                     pool[:, page, off] = d[:, rows, pos.long()]
 
-            for name, pool in self.pool.pools.items():
+            for name in moved:
                 spec = self._specs[name]
                 local_call(lambda p, d: scatter(p, d, name),
-                           (pool, dense[name]), (spec, spec), None)
+                           (pools[name], dense[name]), (spec, spec), None)
             toks = gathered(logits).argmax(dim=-1).to(torch.int32)
             if not self._routed:
                 return toks

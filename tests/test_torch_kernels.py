@@ -46,7 +46,8 @@ from repro_torch.kernels import heft_fused as hf
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 
-KERNEL_NAMES = ("heft_fused", "fused_decision", "oddeven_sort", "eft_select")
+KERNEL_NAMES = ("heft_fused", "fused_decision", "oddeven_sort", "eft_select",
+                "paged_decode_attention")
 
 
 def _event(rng, n, p, inf_frac=0.2):
